@@ -1,0 +1,139 @@
+"""bts_tpu_torch.ops.lpg (plain PyTorch) against bts_tpu.ops.lpg and the
+Pallas kernel in interpret mode, on the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bts_tpu.ops import lpg as jlpg
+from bts_tpu.ops.lpg_pallas import lpg_pallas
+from bts_tpu_torch.ops import _build, lpg_cuda
+from bts_tpu_torch.ops import lpg as tlpg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _random_plane_eq(rng, b=2, h=4, w=6):
+    theta = rng.uniform(0.05, np.pi / 3, size=(b, h, w))
+    phi = rng.uniform(0, 2 * np.pi, size=(b, h, w))
+    dist = rng.uniform(0.5, 10.0, size=(b, h, w))
+    n1 = np.sin(theta) * np.cos(phi)
+    n2 = np.sin(theta) * np.sin(phi)
+    n3 = np.cos(theta)
+    return np.stack([n1, n2, n3, dist], axis=-1).astype(np.float32)
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_forward_matches_jax_reference_and_pallas(rng, r):
+    pe = _random_plane_eq(rng)
+    got = tlpg.local_planar_guidance(torch.from_numpy(pe), r).numpy()
+    want = np.asarray(jlpg.lpg_reference(jnp.asarray(pe), r))
+    pallas = np.asarray(lpg_pallas(jnp.asarray(pe), r, interpret=True))
+    assert got.shape == want.shape == (2, 4 * r, 6 * r)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_decode_and_normalize_match_jax(rng, r):
+    raw = rng.normal(scale=2.0, size=(2, 3, 5, 3)).astype(np.float32)
+    got = tlpg.decode_plane_eq(torch.from_numpy(raw), 10.0)
+    want = jlpg.decode_plane_eq(jnp.asarray(raw), 10.0)
+    # atol: one f32 ulp of phi near 2*pi (4.8e-7). sin/cos of the same phi
+    # differ by about that between XLA's and torch's implementations, which
+    # no rtol absorbs where cos(phi) or sin(phi) is near 0.
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=5e-7)
+    plane = rng.normal(size=(2, 3, 5, 4)).astype(np.float32) * r
+    np.testing.assert_allclose(
+        tlpg.normalize_plane(torch.from_numpy(plane)).numpy(),
+        np.asarray(jlpg.normalize_plane(jnp.asarray(plane))),
+        rtol=1e-6,
+    )
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_backward_matches_jax_vjp(rng, r):
+    pe = _random_plane_eq(rng, b=1, h=2, w=3)
+    g = rng.normal(size=(1, 2 * r, 3 * r)).astype(np.float32)
+    pt = torch.from_numpy(pe).requires_grad_(True)
+    tlpg.local_planar_guidance(pt, r).backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda p: jlpg.local_planar_guidance(p, r), jnp.asarray(pe))
+    np.testing.assert_allclose(
+        pt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), rtol=1e-4, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_gradcheck_float64(rng, r):
+    pe = torch.from_numpy(_random_plane_eq(rng, b=1, h=2, w=2).astype(np.float64))
+    pe.requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda p: tlpg.local_planar_guidance(p, r), (pe,), eps=1e-6, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas", "xla"])
+def test_cpu_tensor_takes_plain_version(rng, impl):
+    pe = torch.from_numpy(_random_plane_eq(rng))
+    before = lpg_cuda.LAUNCHES
+    got = tlpg.local_planar_guidance(pe, 4, impl=impl)
+    assert lpg_cuda.LAUNCHES == before
+    torch.testing.assert_close(got, tlpg.lpg_reference(pe, 4), rtol=0, atol=0)
+
+
+def test_bad_impls_raise(rng):
+    pe = torch.from_numpy(_random_plane_eq(rng))
+    with pytest.raises(NotImplementedError, match="queue 2, item 4"):
+        tlpg.local_planar_guidance(pe, 2, impl="ffi")
+    with pytest.raises(ValueError):
+        tlpg.local_planar_guidance(pe, 2, impl="triton")
+
+
+def test_kernel_wrapper_refuses_cpu_tensor(rng):
+    pe = torch.from_numpy(_random_plane_eq(rng))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lpg_cuda.lpg_cuda(pe, 2)
+    assert lpg_cuda.LAUNCHES == 0
+
+
+def test_import_builds_nothing():
+    """Importing the kernel modules compiles and loads nothing."""
+    code = (
+        "import json, sys\n"
+        "import bts_tpu_torch.ops.lpg_cuda as c, bts_tpu_torch.ops._build as b\n"
+        "print(json.dumps({'lib': b._LIB is None, 'launches': c.LAUNCHES,\n"
+        "  'cpp_ext': 'torch.utils.cpp_extension' in sys.modules,\n"
+        "  'triton': 'triton' in sys.modules}))\n"
+    )
+    build_dir = os.path.join(ROOT, "build", "kernels")
+    before = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else None
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        check=True,
+    )
+    after = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else None
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "lib": True, "launches": 0, "cpp_ext": False, "triton": False,
+    }
+    assert before == after
+
+
+def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as cpp_extension
+
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "kernels").exists()
+    name = _build.library_path().name
+    assert name.startswith("libbts_kernels_") and name.endswith(".so")
+    assert _build.library_path() == _build.library_path()  # content-addressed
