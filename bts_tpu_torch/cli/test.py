@@ -1,7 +1,8 @@
 """CLI: prediction dump -- ``python -m bts_tpu_torch.cli.test <argfile>``.
 
-Runs on the CUDA card (the LPG kernel included). Without a card it fails,
-unless ``--device cpu`` asks for the plain PyTorch ops on the CPU (tests).
+Runs on the CUDA card (the LPG and fused dense-layer kernels included).
+Without a card it fails, unless ``--device cpu`` asks for the plain PyTorch
+ops on the CPU (tests).
 """
 
 import sys

@@ -26,7 +26,11 @@ ENCODERS = {
 
 class BTSModel(nn.Module):
     """image (B,3,H,W) normalized, focal (B,) -> (lpg8x8, lpg4x4, lpg2x2,
-    reduc1x1, depth_est), each (B,1,H,W) float32."""
+    reduc1x1, depth_est), each (B,1,H,W) float32.
+
+    The encoder's ``dense_impl`` (``encoders/densenet.py``) is ``auto``: an
+    inference forward on a card runs the dense layers through the fused
+    kernel."""
 
     def __init__(
         self,

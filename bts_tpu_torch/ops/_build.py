@@ -1,9 +1,11 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
 
 The sources export plain C functions, so they compile without PyTorch's
-headers (seconds, not minutes). The shared library goes to ``build/kernels/``
-at the repository root, named by a hash of the sources and flags, and is
-built at first use in a process. Nothing is built at import.
+headers (seconds, not minutes). Each source compiles to an object in its own
+nvcc process, all started together; one more nvcc links them into a shared
+library in ``build/kernels/`` at the repository root, named by a hash of the
+sources and flags. It is built at first use in a process. Nothing is built at
+import.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _LIB = None
@@ -55,6 +57,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbts_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _check(cmd, proc):
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}{err}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu into one shared library unless it already exists."""
     out = library_path()
@@ -63,12 +71,24 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for obj, src in zip(objs, _sources())]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            _check(cmd, proc)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _check(link, subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 
@@ -78,8 +98,18 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.lpg_forward_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
         lib.lpg_forward_f32.restype = i32
+        strided = [ptr, i64, i64, i64]  # a map's pointer and its (b, h, w) strides
+        params = [ptr] * 6  # s1, b1, w1, s2, b2, w2 (eo: w2q)
+        sizes = [i32] * 6  # B, H, W (eo: U), C, Cmid, G
+        for dt in ("f32", "bf16"):
+            taps = getattr(lib, f"fused_dense_taps_{dt}")
+            taps.argtypes = [*strided, *params, *strided, *sizes, ptr]
+            taps.restype = i32
+            eo = getattr(lib, f"fused_dense_eo_{dt}")
+            eo.argtypes = [*strided, *strided, *params, *strided, i64, *sizes, ptr]
+            eo.restype = i32
         _LIB = lib
     return _LIB

@@ -4,22 +4,38 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: require a CUDA card; print its name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from ``bts_tpu_torch/csrc`` (nvcc);
-3. kernel against plain: the LPG kernel against the plain PyTorch version at
-   the three NYU 480x640 sites (batch 8) and a ragged case, rtol 1e-6,
-   atol 0, with both timed by CUDA events (device time per call);
-4. the port on the card against the port on the CPU in f32 (TF32 off):
-   DenseNet161-BTS at full width, seeded weights, 1x3x96x128, all 5
-   outputs at rtol 1e-3, atol 1e-4 (cuDNN sums in another order);
+2. build: compile the CUDA kernels from ``bts_tpu_torch/csrc`` (one nvcc per
+   source, all started together, then one link);
+3. kernels against plain (TF32 off), each timed by CUDA events (device time
+   per call) beside its plain PyTorch version:
+   - LPG at the three NYU 480x640 sites (batch 8) and a ragged case, rtol
+     1e-6, atol 0;
+   - the fused dense layer, taps and eo, in bf16 and f32, at the first and
+     the last layer of each DenseNet161 block at 480x640, batch 8, against
+     the plain fused versions (the same rounding points): bf16 rtol 2e-2,
+     atol 2e-2 (one bf16 ulp of an output, about 2^-8 relative, may flip
+     with the summation order), f32 rtol 1e-4, atol 1e-4. The unfused
+     cuDNN chain of the layer (what ``dense_impl='plain'`` runs: BN, ReLU,
+     1x1, BN, ReLU, 3x3 and the concat) is timed beside them;
+4. the port on the card against the port on the CPU in f32: DenseNet161-BTS
+   at full width, seeded weights, 1x3x96x128, all 5 outputs at rtol 1e-3,
+   atol 1e-4 (cuDNN sums in another order), with ``dense_impl`` auto (taps
+   kernel) and eo: exactly 78 launches of that kernel, none of the other,
+   and 3 LPG launches per forward;
 5. the serving path: ``bts_tpu_torch.cli.test.main`` over 8 synthetic NYU
    480x640 frames in bf16, with the kernels' launch counts reset just
-   before; 8 uint16 pngs and exactly 3 LPG launches per forward;
-6. bf16 against f32 on one 480x640 batch (max abs diff < 0.15 m), and the
-   forward's img/s at batch 1 and 8 in bf16 with the kernel (lpg_impl auto)
-   and with the plain LPG (xla).
+   before; 8 uint16 pngs, and exactly 78 taps, 0 eo and 3 LPG launches per
+   forward;
+6. bf16 against f32 on one 4x480x640 batch (max abs diff < 0.15 m), for
+   dense_impl auto and for eo (the eo path: its launch counts reset just
+   before, 78 eo launches); then the forward's img/s in bf16 at batch 1 and
+   8, in turns, with the dense layers plain, through the taps kernel and
+   through the eo kernel, and with the plain LPG (xla).
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (``launches`` from the
+serving path of phase 5 for LPG and taps, from the eo forward of phase 6 for
+eo; ``ms``/``plain_ms`` summed over the phase-3 shapes, bf16 for the dense
+layers); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -37,6 +53,10 @@ from PIL import Image
 NYU_SITES = [(8, 60, 80), (4, 120, 160), (2, 240, 320)]  # (r, grid h, grid w)
 LPG_SOURCE = "bts_tpu_torch/csrc/lpg.cu"
 LPG_REPLACES = "bts_tpu/ops/lpg_pallas.py:38"
+DENSE_SOURCE = "bts_tpu_torch/csrc/fused_dense.cu"
+DENSE_REPLACES = {"taps": "docs/archive/fused_dense.py:167", "eo": "docs/archive/fused_dense.py:216"}
+DENSE_LAYERS = 78  # DenseNet161: 6 + 12 + 36 + 24
+DENSE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-4, atol=1e-4)}
 
 
 def phase(msg):
@@ -99,6 +119,77 @@ def check_kernel_against_plain(torch, lpg_cuda, lpg):
     return max_err, kernel_ms, plain_ms
 
 
+def densenet161_layer_shapes(h=480, w=640):
+    """(grid h, grid w, C) of the first and the last dense layer of each
+    DenseNet161 block (growth 48) at an h x w input."""
+    shapes, c = [], 96
+    for i, n in enumerate((6, 12, 36, 24)):
+        s = 4 * 2**i
+        shapes += [(h // s, w // s, c), (h // s, w // s, c + (n - 1) * 48)]
+        c = (c + n * 48) // 2
+    return shapes
+
+
+def seeded_dense_layer(torch, DenseLayer, c, gen):
+    """A DenseNet161 layer on the card: BN statistics drawn around their
+    defaults, convs at the init's He scale, from ``gen``."""
+    layer = DenseLayer(c, 48)
+    with torch.no_grad():
+        for bn in (layer.norm1, layer.norm2):
+            n = bn.num_features
+            bn.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+            bn.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+            bn.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+            bn.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+        for conv in (layer.conv1, layer.conv2):
+            fan_in = conv.weight[0].numel()
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * (2 / fan_in) ** 0.5)
+    return layer.cuda().eval()
+
+
+def check_dense_kernels(torch, fd, fdc, DenseLayer):
+    """Phase 3, the fused dense layer. Returns {impl: {dtype name: (max abs
+    err, kernel ms, plain ms)}} with the times summed over the shapes, and
+    {dtype name: ms} of the unfused cuDNN chain, also summed."""
+    gen = torch.Generator().manual_seed(3)
+    launch = {"taps": fdc.fused_dense_cuda, "eo": fdc.fused_dense_eo_cuda}
+    plain = {"taps": fd.fused_dense_reference, "eo": fd.fused_dense_eo_reference}
+    res = {impl: {} for impl in launch}
+    chain_ms = {}
+    for h, w, c in densenet161_layer_shapes():
+        layer = seeded_dense_layer(torch, DenseLayer, c, gen)
+        x32 = torch.randn(8, h, w, c, generator=gen).cuda()
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).removeprefix("torch.")
+            x = x32.to(dt)
+            for impl in ("taps", "eo"):
+                s1, b1, w1, s2, b2, w2, w2q = layer.folded(dt, impl == "eo")
+                args = ((x,) if impl == "taps" else (x[:, :, 0::2], x[:, :, 1::2])) + (
+                    s1, b1, w1, s2, b2, w2 if impl == "taps" else w2q)
+                counts = fdc.TAPS_LAUNCHES, fdc.EO_LAUNCHES
+                got = launch[impl](*args)
+                torch.cuda.synchronize()
+                added = fdc.TAPS_LAUNCHES - counts[0], fdc.EO_LAUNCHES - counts[1]
+                if added != ((1, 0) if impl == "taps" else (0, 1)):
+                    raise RuntimeError(f"fused dense {impl}: launch counts moved by {added}")
+                want = plain[impl](*args)
+                torch.testing.assert_close(got, want, **DENSE_TOL[name])
+                err = (got.float() - want.float()).abs().max().item()
+                k = cuda_median_ms(lambda: launch[impl](*args), samples=20, reps=5)
+                p = cuda_median_ms(lambda: plain[impl](*args), samples=20, reps=5)
+                e0, k0, p0 = res[impl].get(name, (0.0, 0.0, 0.0))
+                res[impl][name] = (max(e0, err), k0 + k, p0 + p)
+                print(f"dense {impl} {name} B=8 {h}x{w} C={c}: max_abs_err {err!r}, "
+                      f"kernel {k!r} ms, plain {p!r} ms (median of 20 samples of 5 calls)")
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                                        enabled=dt == torch.bfloat16):
+                ch = cuda_median_ms(lambda: torch.cat([xn, layer(xn)], 1), samples=20, reps=5)
+            chain_ms[name] = chain_ms.get(name, 0.0) + ch
+            print(f"dense cuDNN chain {name} B=8 {h}x{w} C={c}: {ch!r} ms")
+    return res, chain_ms
+
+
 def write_nyu_frames(root, n=8, h=480, w=640):
     scene = os.path.join(root, "kitchen_0001")
     os.makedirs(scene)
@@ -116,9 +207,10 @@ def write_nyu_frames(root, n=8, h=480, w=640):
     return manifest
 
 
-def throughput(torch, model, batch, impl, iters=20):
+def throughput(torch, model, batch, dense_impl, lpg_impl, iters=20):
     """Forward img/s in bf16 at this batch, CUDA events around iters runs."""
-    model.decoder.lpg_impl = impl
+    model.encoder.dense_impl = dense_impl
+    model.decoder.lpg_impl = lpg_impl
     x = torch.randn(batch, 3, 480, 640, device="cuda")
     focal = torch.full((batch,), 518.8579, device="cuda")
     with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
@@ -152,7 +244,22 @@ def main():
     from bts_tpu_torch.cli import test as cli_test
     from bts_tpu_torch.config import Config
     from bts_tpu_torch.models.bts import create_model
-    from bts_tpu_torch.ops import _build, lpg, lpg_cuda
+    from bts_tpu_torch.models.encoders.densenet import DenseLayer
+    from bts_tpu_torch.ops import _build, fused_dense, fused_dense_cuda, lpg, lpg_cuda
+
+    def reset_counts():
+        lpg_cuda.LAUNCHES = fused_dense_cuda.TAPS_LAUNCHES = fused_dense_cuda.EO_LAUNCHES = 0
+
+    def check_counts(what, forwards, dense):
+        """The launches since reset_counts(): 78 of the ``dense`` kernel, none
+        of the other, 3 LPG, per forward."""
+        got = {"taps": fused_dense_cuda.TAPS_LAUNCHES, "eo": fused_dense_cuda.EO_LAUNCHES,
+               "lpg": lpg_cuda.LAUNCHES}
+        want = {"taps": 0, "eo": 0, "lpg": 3 * forwards}
+        want[dense] = DENSE_LAYERS * forwards
+        if got != want:
+            raise RuntimeError(f"{what}: kernel launches {got}, expected {want}")
+        return got
 
     phase("2 build")
     t0 = time.perf_counter()
@@ -160,33 +267,44 @@ def main():
     _build.load_library()
     print(f"built {lib_path} in {time.perf_counter() - t0:.2f} s")
 
-    phase("3 kernel against plain")
-    max_err, kernel_ms, plain_ms = check_kernel_against_plain(torch, lpg_cuda, lpg)
-    print(f"three NYU sites at B=8: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms")
-
-    phase("4 port on the card against the port on the CPU, f32")
+    phase("3 kernels against plain")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    max_err, kernel_ms, plain_ms = check_kernel_against_plain(torch, lpg_cuda, lpg)
+    print(f"three NYU sites at B=8: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms")
+    dense, chain_ms = check_dense_kernels(torch, fused_dense, fused_dense_cuda, DenseLayer)
+    for impl, by_dt in dense.items():
+        for name, (err, k, p) in by_dt.items():
+            print(f"dense {impl} {name}, 8 shapes summed: kernel {k!r} ms, plain {p!r} ms, "
+                  f"cuDNN chain {chain_ms[name]!r} ms, max_abs_err {err!r}")
+
+    phase("4 port on the card against the port on the CPU, f32")
     cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512)
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(1, 3, 96, 128, generator=gen)
     focal = torch.tensor([518.8579])
+    cpu_model, gpu_model = create_model(cfg).eval(), create_model(cfg).cuda().eval()
     with torch.inference_mode():
-        want = create_model(cfg).eval()(x, focal)
-        before = lpg_cuda.LAUNCHES
-        got = create_model(cfg).cuda().eval()(x.cuda(), focal.cuda())
-        torch.cuda.synchronize()
-    if lpg_cuda.LAUNCHES != before + 3:
-        raise RuntimeError(f"expected 3 LPG launches, got {lpg_cuda.LAUNCHES - before}")
-    for name, g, w in zip(["lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth"], got, want,
-                          strict=True):
-        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-4)
-        print(f"{name}: max abs diff GPU vs CPU {(g.cpu() - w).abs().max().item()!r}")
+        want = cpu_model(x, focal)
+    for dense_impl, kernel in (("auto", "taps"), ("eo", "eo")):
+        gpu_model.encoder.dense_impl = dense_impl
+        reset_counts()
+        with torch.inference_mode():
+            got = gpu_model(x.cuda(), focal.cuda())
+            torch.cuda.synchronize()
+        check_counts(f"f32 forward, dense_impl {dense_impl}", 1, kernel)
+        for name, g, w in zip(["lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth"], got, want,
+                              strict=True):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-4)
+            print(f"dense_impl {dense_impl} {name}: max abs diff GPU vs CPU "
+                  f"{(g.cpu() - w).abs().max().item()!r}")
+    del cpu_model, gpu_model
 
     phase("5 serving path: bts_tpu_torch.cli.test.main")
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         n_frames, batch = 8, 4
+        forwards = math.ceil(n_frames / batch)
         manifest = write_nyu_frames(os.path.join(tmp, "data"), n_frames)
         argv = [
             "--encoder", "densenet161_bts", "--dataset", "nyu", "--max_depth", "10",
@@ -197,19 +315,16 @@ def main():
         ]
         os.chdir(tmp)
         try:
-            lpg_cuda.LAUNCHES = 0
+            reset_counts()
             t0 = time.perf_counter()
             rc = cli_test.main(argv)
             torch.cuda.synchronize()
-            launches = lpg_cuda.LAUNCHES
             elapsed = time.perf_counter() - t0
+            serving = check_counts("cli.test", forwards, "taps")
         finally:
             os.chdir(cwd)
         if rc != 0:
             raise RuntimeError(f"cli.test.main returned {rc}")
-        forwards = math.ceil(n_frames / batch)
-        if launches != 3 * forwards:
-            raise RuntimeError(f"LPG kernel launches {launches}, expected {3 * forwards}")
         raw = os.path.join(tmp, "result_chip_smoke", "raw")
         pngs = sorted(os.listdir(raw))
         if len(pngs) != n_frames:
@@ -218,43 +333,60 @@ def main():
             a = np.asarray(Image.open(os.path.join(raw, p)))
             if a.dtype != np.uint16 or a.shape != (480, 640) or a.max() == 0:
                 raise RuntimeError(f"{p}: {a.dtype} {a.shape} max {a.max()}")
-    print(f"{n_frames} raw pngs, {forwards} forwards, {launches} LPG kernel launches, "
+    print(f"{n_frames} raw pngs, {forwards} forwards, kernel launches {serving}, "
           f"{elapsed:.1f} s including model build")
 
-    phase("6 bf16 against f32, throughput")
+    phase("6 bf16 against f32, the eo path, throughput")
     model = create_model(cfg).cuda().eval()
     x = torch.randn(4, 3, 480, 640, generator=gen).cuda()
     focal = torch.full((4,), 518.8579, device="cuda")
     with torch.inference_mode():
         f32 = model(x, focal)[4]
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            bf16 = model(x, focal)[4]
-    if not (torch.isfinite(f32).all() and torch.isfinite(bf16).all()):
-        raise RuntimeError("non-finite depth")
-    if tuple(bf16.shape) != (4, 1, 480, 640):
-        raise RuntimeError(f"depth shape {tuple(bf16.shape)}")
-    diff = (bf16 - f32).abs().max().item()
-    print(f"bf16 vs f32 final depth, 4x480x640: max abs diff {diff!r} m")
-    if diff >= 0.15:
-        raise RuntimeError(f"bf16 vs f32 max abs diff {diff} m >= 0.15 m")
-    rates = {}
+        depth = {}
+        for dense_impl in ("auto", "eo"):
+            model.encoder.dense_impl = dense_impl
+            reset_counts()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                depth[dense_impl] = model(x, focal)[4]
+            torch.cuda.synchronize()
+            if dense_impl == "eo":
+                eo_path = check_counts("bf16 forward, dense_impl eo", 1, "eo")
+    for dense_impl, bf16 in depth.items():
+        if not (torch.isfinite(f32).all() and torch.isfinite(bf16).all()):
+            raise RuntimeError(f"non-finite depth (dense_impl {dense_impl})")
+        if tuple(bf16.shape) != (4, 1, 480, 640):
+            raise RuntimeError(f"depth shape {tuple(bf16.shape)}")
+        diff = (bf16 - f32).abs().max().item()
+        print(f"bf16 (dense_impl {dense_impl}) vs f32 final depth, 4x480x640: "
+              f"max abs diff {diff!r} m")
+        if diff >= 0.15:
+            raise RuntimeError(f"bf16 (dense_impl {dense_impl}) vs f32 max abs diff {diff} m "
+                               ">= 0.15 m")
+    # (dense_impl, lpg_impl): dense layers plain / taps kernel / eo kernel,
+    # and the plain LPG; run in turns forward then backward, averaged.
+    impls = [("plain", "auto"), ("auto", "auto"), ("eo", "auto"), ("auto", "xla")]
     for b in (1, 8):
-        # In turns (plain, kernel, kernel, plain), averaged per impl.
-        runs = [(impl, throughput(torch, model, b, impl)) for impl in ("xla", "auto", "auto", "xla")]
+        runs = [(i, throughput(torch, model, b, *i)) for i in impls + impls[::-1]]
         print(f"batch {b} runs in turn: {runs!r}")
-        for impl in ("auto", "xla"):
-            rates[f"b{b}_{impl}"] = statistics.mean(r for i, r in runs if i == impl)
-        print(f"forward bf16 480x640 batch {b}: lpg auto (kernel) {rates[f'b{b}_auto']!r} img/s, "
-              f"lpg xla (plain) {rates[f'b{b}_xla']!r} img/s ({smi})")
+        for i in impls:
+            rate = statistics.mean(r for j, r in runs if j == i)
+            print(f"forward bf16 480x640 batch {b}: dense_impl {i[0]}, lpg_impl {i[1]}: "
+                  f"{rate!r} img/s ({smi})")
 
     if "jax" in sys.modules or "flax" in sys.modules:
         raise RuntimeError("jax was imported")
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "lpg_forward_f32", "route": "cuda", "source": LPG_SOURCE,
-        "replaces": LPG_REPLACES, "launches": launches, "max_abs_err": max_err,
+        "replaces": LPG_REPLACES, "launches": serving["lpg"], "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+    }] + [{
+        "name": f"fused_dense_{impl}_bf16", "route": "cuda", "source": DENSE_SOURCE,
+        "replaces": DENSE_REPLACES[impl], "launches": launches[impl],
+        "max_abs_err": dense[impl]["bfloat16"][0], "ms": dense[impl]["bfloat16"][1],
+        "plain_ms": dense[impl]["bfloat16"][2], "cudnn_chain_ms": chain_ms["bfloat16"],
+        "f32": dict(zip(("max_abs_err", "ms", "plain_ms"), dense[impl]["float32"])),
+    } for impl, launches in (("taps", serving), ("eo", eo_path))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -17,11 +17,14 @@ TINY = ((2, 2, 2, 2), 8, 16)  # block_config, growth_rate, num_init_features
 
 
 @pytest.mark.parametrize(
-    "config,hw",
-    [(TINY, (64, 96)), (((6, 12, 24, 16), 32, 64), (32, 32))],
-    ids=["tiny", "densenet121"],
+    "config,hw,dense_impl",
+    [(TINY, (64, 96), "auto"), (((6, 12, 24, 16), 32, 64), (32, 32), "auto"),
+     (TINY, (64, 128), "taps"), (TINY, (64, 128), "eo")],
+    ids=["tiny", "densenet121", "tiny-taps", "tiny-eo"],
 )
-def test_skips_match_bts_tpu(config, hw):
+def test_skips_match_bts_tpu(config, hw, dense_impl):
+    """auto on the CPU runs the unfused modules; taps and eo the plain
+    versions of the fused layer (eo needs an even width at every block)."""
     rng = np.random.default_rng(1)
     x = rng.normal(size=(2, *hw, 3)).astype(np.float32)
     jenc = jdensenet.DenseNetEncoder(*config, dtype=jnp.float32, split=False)
@@ -29,7 +32,7 @@ def test_skips_match_bts_tpu(config, hw):
     params, stats = randomize_bn(variables["params"], variables["batch_stats"], rng)
     want = jenc.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=False)
 
-    enc = densenet.DenseNetEncoder(*config).eval()
+    enc = densenet.DenseNetEncoder(*config, dense_impl=dense_impl).eval()
     state = state_dict_from_flax({"encoder": params}, {"encoder": stats})
     enc.load_state_dict({k.removeprefix("encoder."): v for k, v in state.items()})
     with torch.no_grad():

@@ -1,0 +1,201 @@
+"""bts_tpu_torch.ops.fused_dense against the archived Pallas kernels
+(docs/archive/fused_dense.py, in interpret mode on the CPU), and the fused
+dense-layer path of the port's DenseNet encoder."""
+
+import importlib.util
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+from bts_tpu_torch.models.encoders import densenet
+from bts_tpu_torch.ops import fused_dense
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load_archive():
+    """docs/ is not a package: load the retired kernels by file path."""
+    spec = importlib.util.spec_from_file_location(
+        "archived_fused_dense", os.path.join(ROOT, "docs", "archive", "fused_dense.py")
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+archive = _load_archive()
+
+# f32: both sides sum in f32 in another order (as docs/archive/test_fused_dense.py:82).
+# bf16: y, z and out round to bf16 on both sides, but XLA may keep an
+# elementwise chain in f32 between its roundings, and a one-ulp change of a
+# bottleneck value (2^-8 relative) moves an output by about that much.
+TOL = {np.float32: dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def make_layer(rng, b=2, h=8, w=12, c=40, cmid=24, g=8):
+    """x (B,H,W,C) and folded (s1, b1, w1, s2, b2, w2), as numpy f32."""
+    x = rng.normal(size=(b, h, w, c)).astype(np.float32)
+
+    def bn(n):
+        return (rng.normal(size=n), rng.normal(size=n), rng.normal(size=n),
+                rng.uniform(0.5, 2.0, n))
+
+    s1, b1 = archive.fold_bn(*map(jnp.asarray, (a.astype(np.float32) for a in bn(c))), 1e-5)
+    s2, b2 = archive.fold_bn(*map(jnp.asarray, (a.astype(np.float32) for a in bn(cmid))), 1e-5)
+    w1 = (rng.normal(size=(c, cmid)) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(3, 3, cmid, g)) * 0.1).astype(np.float32)
+    return x, tuple(np.array(a) for a in (s1, b1, w1, s2, b2, w2))
+
+
+def _cast(arrays, dtype):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return [jnp.asarray(a).astype(jdt) for a in arrays], [torch.from_numpy(a).to(tdt) for a in arrays]
+
+
+def test_fold_bn_matches_archive_and_batchnorm(rng):
+    c = 7
+    gam, bet, mean = (rng.normal(size=c).astype(np.float32) for _ in range(3))
+    var = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    want_s, want_b = archive.fold_bn(*map(jnp.asarray, (gam, bet, mean, var)), 1e-5)
+    s, b = fused_dense.fold_bn(*map(torch.from_numpy, (gam, bet, mean, var)), 1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(b.numpy(), np.asarray(want_b), rtol=1e-6, atol=1e-6)
+
+    bn = nn.BatchNorm2d(c, eps=1e-5).eval()
+    with torch.no_grad():
+        for p, v in zip((bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                        (gam, bet, mean, var)):
+            p.copy_(torch.from_numpy(v))
+        x = torch.from_numpy(rng.normal(size=(3, c, 4, 5)).astype(np.float32))
+        want = bn(x)
+    got = x * s[:, None, None] + b[:, None, None]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_pack_w2_eo_equals_archive(rng):
+    w2 = rng.normal(size=(3, 3, 24, 8)).astype(np.float32)
+    np.testing.assert_array_equal(
+        fused_dense.pack_w2_eo(torch.from_numpy(w2)).numpy(),
+        np.asarray(archive.pack_w2_eo(jnp.asarray(w2))),
+    )
+
+
+@pytest.mark.parametrize("w", [12, 11], ids=["even", "odd"])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"], ids=["f32", "bf16"])
+def test_taps_reference_matches_pallas(rng, dtype, w):
+    x, params = make_layer(rng, w=w)
+    jargs, targs = _cast((x, *params), dtype)
+    want = archive.fused_dense_layer(*jargs, interpret=True)
+    got = fused_dense.fused_dense_reference(*targs)
+    assert got.dtype == targs[0].dtype and tuple(got.shape) == (2, 8, w, 8)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"], ids=["f32", "bf16"])
+def test_eo_reference_matches_pallas(rng, dtype):
+    x, params = make_layer(rng)
+    w2q = np.array(archive.pack_w2_eo(jnp.asarray(params[5])))
+    xe, xo = x[:, :, 0::2], x[:, :, 1::2]
+    jargs, targs = _cast((xe, xo, *params[:5], w2q), dtype)
+    want = archive.fused_dense_layer_eo(*jargs, interpret=True)
+    got = fused_dense.fused_dense_eo_reference(*targs)
+    assert tuple(got.shape) == (2, 8, 6, 16)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
+
+
+def test_dispatch_taps_and_eo_agree_and_write_out(rng):
+    x, params = make_layer(rng)
+    xt, *pt = (torch.from_numpy(a) for a in (x, *params))
+    taps = fused_dense.fused_dense_layer(xt, *pt, impl="taps")
+    buf = torch.zeros(2, 8, 12, 8)
+    got = fused_dense.fused_dense_layer(xt, *pt, impl="eo", out=buf)
+    assert got is buf
+    torch.testing.assert_close(buf, taps, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="impl"):
+        fused_dense.fused_dense_layer(xt, *pt, impl="plain")
+
+
+def test_eo_odd_width_raises(rng):
+    x, params = make_layer(rng, w=11)
+    with pytest.raises(ValueError, match="width 11"):
+        fused_dense.fused_dense_layer(*(torch.from_numpy(a) for a in (x, *params)), impl="eo")
+    enc = densenet.DenseNetEncoder((2, 2), 8, 16, dense_impl="eo").eval()
+    with torch.no_grad(), pytest.raises(ValueError, match="width 9"):
+        enc(torch.zeros(1, 3, 32, 36))  # block1 at 8x9
+
+
+@pytest.mark.parametrize("impl", ["taps", "eo"])
+def test_fused_impls_are_inference_only(impl):
+    enc = densenet.DenseNetEncoder((2, 2), 8, 16, dense_impl=impl)
+    x = torch.zeros(1, 3, 32, 32)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="inference-only"):
+        enc.train()(x)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        enc.eval()(x)
+    enc.dense_impl = "fused"
+    with torch.no_grad(), pytest.raises(ValueError, match="dense_impl"):
+        enc(x)
+
+
+def _randomize(module, seed):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0, 0.1, generator=gen)
+                m.running_mean.normal_(0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+            elif isinstance(m, nn.Conv2d):
+                m.weight.normal_(0, 0.2, generator=gen)
+    return module
+
+
+@pytest.mark.parametrize("impl", ["taps", "eo"])
+def test_fold_cache_follows_weights(impl):
+    """A forward, then other weights loaded (and BN statistics changed in
+    place): the output equals a fresh model's, not the cached fold's."""
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(1, 3, 32, 64)).astype(np.float32))
+    enc = _randomize(densenet.DenseNetEncoder((2, 2), 8, 16, dense_impl=impl), 0).eval()
+    other = _randomize(densenet.DenseNetEncoder((2, 2), 8, 16, dense_impl=impl), 1).eval()
+    with torch.no_grad():
+        before = enc(x)
+        enc.load_state_dict(other.state_dict())
+        got, want = enc(x), other(x)
+        for g, w in zip(got, want, strict=True):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert not torch.equal(got[-1], before[-1])
+        enc.base_model.denseblock1.denselayer1.norm1.running_mean.add_(0.5)
+        other.base_model.denseblock1.denselayer1.norm1.running_mean.add_(0.5)
+        for g, w in zip(enc(x), other(x), strict=True):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors(rng):
+    from bts_tpu_torch.ops import fused_dense_cuda
+
+    x, params = make_layer(rng, c=16, cmid=32)
+    xt, *pt = (torch.from_numpy(a) for a in (x, *params))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_dense_cuda.fused_dense_cuda(xt, *pt)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_dense_cuda.fused_dense_eo_cuda(
+            xt[:, :, 0::2], xt[:, :, 1::2], *pt[:5], fused_dense.pack_w2_eo(pt[5]))
+    assert fused_dense_cuda.TAPS_LAUNCHES == fused_dense_cuda.EO_LAUNCHES == 0
+
+
+def test_weights_made_under_inference_mode_fold_each_call():
+    """Inference tensors carry no version counter: no cache, same result."""
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(1, 3, 32, 32)).astype(np.float32))
+    with torch.inference_mode():
+        enc = _randomize(densenet.DenseNetEncoder((2, 2), 8, 16, dense_impl="taps"), 2).eval()
+        want = densenet.DenseNetEncoder((2, 2), 8, 16, dense_impl="plain").eval()
+        want.load_state_dict(enc.state_dict())
+        for _ in range(2):
+            for g, w in zip(enc(x), want(x), strict=True):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)

@@ -22,6 +22,8 @@ SLICE_MODULES = [
     "bts_tpu_torch.ops",
     "bts_tpu_torch.ops.lpg",
     "bts_tpu_torch.ops.lpg_cuda",
+    "bts_tpu_torch.ops.fused_dense",
+    "bts_tpu_torch.ops.fused_dense_cuda",
     "bts_tpu_torch.ops._build",
     "bts_tpu_torch.models",
     "bts_tpu_torch.models.layers",

@@ -45,8 +45,11 @@ def jax_variables(cfg, rng):
     return model, params, stats
 
 
-@pytest.mark.parametrize("dataset,max_depth", [("nyu", 10.0), ("kitti", 80.0)])
-def test_model_matches_bts_tpu(tiny_encoder, dataset, max_depth):
+@pytest.mark.parametrize(
+    "dataset,max_depth,dense_impl",
+    [("nyu", 10.0, "auto"), ("kitti", 80.0, "auto"), ("nyu", 10.0, "taps")],
+)
+def test_model_matches_bts_tpu(tiny_encoder, dataset, max_depth, dense_impl):
     rng = np.random.default_rng(2)
     cfg = Config(
         encoder=tiny_encoder, dataset=dataset, max_depth=max_depth, bts_size=128,
@@ -60,6 +63,8 @@ def test_model_matches_bts_tpu(tiny_encoder, dataset, max_depth):
     )
 
     model = bts.create_model(cfg)
+    assert model.encoder.dense_impl == "auto"
+    model.encoder.dense_impl = dense_impl
     model.load_state_dict(state_dict_from_flax(params, stats), strict=True)
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(focal))
