@@ -7,9 +7,9 @@ kernel in ``csrc/lpg.cu``), ``models.{layers,decoder,bts,convert}``,
 
 Tensors are NCHW inside the models; the LPG functions keep ``bts_tpu``'s
 ``(B, H, W, 4)`` plane-equation layout. The package imports ``torch`` and
-never ``jax``: the host modules of ``bts_tpu`` that load without jax
-(``config``, ``data.*``, ``utils.colorize``, ``apps.predict``'s png helpers)
-are reused by import.
+never ``jax``, and nothing of ``bts_tpu``: the host modules it needs
+(``config``, ``data.{manifest,transforms,loader}``, ``utils.colorize``,
+``apps.predict``'s png helpers) are its own copies.
 """
 
 __version__ = "0.1.0"

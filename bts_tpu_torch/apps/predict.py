@@ -3,7 +3,7 @@
 Runs the model over ``cfg.filenames_file`` and writes
 ``result_<model>/raw/*.png`` uint16 depth maps (x1000 NYU, x256 KITTI), plus
 the ``--save_lpg`` visualizations. Data loading, file naming and png writing
-are ``bts_tpu``'s own functions; the forward is batched, under
+are the port's copies of ``bts_tpu``'s; the forward is batched, under
 ``torch.inference_mode``, in bf16 autocast when ``--compute_dtype bfloat16``.
 """
 
@@ -18,11 +18,27 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from bts_tpu.apps.predict import output_name, save_depth_png
-from bts_tpu.config import Config
-from bts_tpu.data.loader import EvalLoader
-from bts_tpu.data.transforms import denormalize_image
-from bts_tpu.utils.colorize import colorize
+from bts_tpu_torch.config import Config
+from bts_tpu_torch.data.loader import EvalLoader
+from bts_tpu_torch.data.transforms import denormalize_image
+from bts_tpu_torch.utils.colorize import colorize
+
+
+def output_name(image_path: str, dataset: str) -> str:
+    """Filename mangling (pytorch/bts_test.py:146-160)."""
+    parts = image_path.split("/")
+    if dataset == "kitti":
+        # '<date>/<drive>/image_02/data/<file>' -> '<drive>_<file>'
+        drive = parts[-4] if len(parts) >= 4 else parts[0]
+        return f"{drive}_{parts[-1]}"
+    # NYU: '<scene>/rgb_<idx>.jpg' -> '<scene>_rgb_<idx>'
+    return "_".join(parts[-2:]) if len(parts) >= 2 else parts[-1]
+
+
+def save_depth_png(path: str, depth: np.ndarray, dataset: str):
+    """uint16 png at the reference scaling (pytorch/bts_test.py:163-173)."""
+    scaled = depth * (256.0 if dataset == "kitti" else 1000.0)
+    Image.fromarray(scaled.astype(np.uint16)).save(path)
 
 
 def _compute_context(cfg: Config, device: torch.device):

@@ -1,20 +1,181 @@
-"""Configuration for the port: ``bts_tpu``'s ``Config`` and flag surface.
+"""Configuration for the port: the ``Config`` dataclass and its flag surface.
 
-``Config`` and the argument parser are ``bts_tpu.config``'s, so reference and
-``bts_tpu`` args files carry over unchanged. ``parse_args`` differs in one
-way: ``Config.validate`` resolves ``model_flavor auto`` and ``normalization
-auto`` by sniffing the checkpoint files, which imports jax-backed modules of
-``bts_tpu``. The port checks what it supports itself and pins both fields to
-concrete values, so nothing sniffs afterwards.
+A copy of ``bts_tpu/config.py``'s ``Config`` and argument parser, with the
+same fields, flags and defaults, so reference and ``bts_tpu`` args files
+carry over unchanged. Left out: the checkpoint sniffing behind
+``model_flavor auto`` and ``normalization auto`` (it reads TF and orbax
+checkpoints). ``parse_args`` checks what the port supports itself and pins
+both fields to concrete values, so nothing sniffs afterwards.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import os
 import sys
 from typing import Optional, Sequence, Tuple
 
-from bts_tpu.config import Config, _build_parser
+
+@dataclasses.dataclass
+class Config:
+    """All experiment configuration. Field names mirror reference flags."""
+
+    # Mode / identity
+    mode: str = "train"
+    model_name: str = "bts_eigen_v2"
+    encoder: str = "densenet161_bts"
+
+    # Dataset
+    dataset: str = "nyu"  # 'nyu' | 'kitti'
+    data_path: str = ""
+    gt_path: str = ""
+    filenames_file: str = ""
+    input_height: int = 480
+    input_width: int = 640
+    max_depth: float = 10.0
+
+    # Log and save
+    log_directory: str = ""
+    checkpoint_path: str = ""
+    pretrained_model: str = ""
+    log_freq: int = 100
+    save_freq: int = 500
+    max_to_keep: int = 200
+
+    # Training
+    fix_first_conv_blocks: bool = False
+    fix_first_conv_block: bool = False
+    bn_no_track_stats: bool = False
+    weight_decay: float = 1e-2
+    bts_size: int = 512
+    retrain: bool = False
+    adam_eps: float = 1e-6
+    batch_size: int = 4
+    num_epochs: int = 50
+    learning_rate: float = 1e-4
+    end_learning_rate: float = -1.0
+    variance_focus: float = 0.85
+
+    # Preprocessing
+    do_random_rotate: bool = False
+    degree: float = 2.5
+    do_kb_crop: bool = False
+    use_right: bool = False
+    # 'imagenet' | 'caffe' | 'caffe_unscaled' | 'auto' (the port: imagenet)
+    normalization: str = "auto"
+
+    # Multi-device
+    num_threads: int = 1
+    world_size: int = 1
+    rank: int = 0
+    dist_url: str = ""
+    dist_backend: str = ""
+    gpu: Optional[int] = None
+    multiprocessing_distributed: bool = False
+
+    # Online eval
+    do_online_eval: bool = False
+    data_path_eval: str = ""
+    gt_path_eval: str = ""
+    filenames_file_eval: str = ""
+    min_depth_eval: float = 1e-3
+    max_depth_eval: float = 80.0
+    eigen_crop: bool = False
+    garg_crop: bool = False
+    eval_freq: int = 500
+    eval_summary_directory: str = ""
+
+    # Test / eval-script flags
+    save_lpg: bool = False
+    pred_path: str = ""
+    min_depth: float = 1e-3
+    focal: float = -1.0
+
+    # Additions of bts_tpu (no reference equivalent); kept so its args
+    # files parse. The port reads compute_dtype, eval_batch_size, seed and
+    # lpg_impl; the rest belong to parts not ported yet.
+    num_devices: int = 0
+    mesh_axis_name: str = "data"
+    compute_dtype: str = "float32"
+    eval_batch_size: int = 1
+    device_eval: bool = True
+    seed: int = 42
+    lpg_impl: str = "auto"
+    model_flavor: str = "auto"
+    fast_tail: bool = True
+    device_augment: bool = False
+    adam_bf16_moments: bool = False
+    remat: bool = False
+    remat_policy: str = "conv"
+    remat_scope: str = "encoder"
+    preempt_checkpoint: bool = True
+    async_checkpoint: bool = False
+    profile_steps: int = 0
+    profile_dir: str = "/tmp/bts_tpu_trace"
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def depth_mask_min(self) -> float:
+        """Training loss valid-depth threshold (NYU > 0.1, KITTI > 1.0)."""
+        return 0.1 if self.dataset == "nyu" else 1.0
+
+    @property
+    def resolved_normalization(self) -> str:
+        """'imagenet', 'caffe' or 'caffe_unscaled'. The TF reference scales
+        by 0.017 only for densenet encoders, so 'caffe' on another encoder
+        resolves to 'caffe_unscaled'. 'auto' is 'imagenet': bts_tpu picks
+        caffe only for a TF checkpoint, which the port refuses."""
+        if self.normalization in ("imagenet", "caffe_unscaled"):
+            return self.normalization
+        if self.normalization == "caffe":
+            return "caffe" if self.encoder.startswith("densenet") else "caffe_unscaled"
+        if self.normalization == "auto":
+            return "imagenet"
+        raise ValueError(
+            f"normalization must be 'imagenet', 'caffe', 'caffe_unscaled' or 'auto' "
+            f"(got {self.normalization!r})"
+        )
+
+    def validate(self) -> "Config":
+        """Reject typo'd enum flags at the CLI boundary."""
+        if self.dataset not in ("nyu", "kitti"):
+            raise ValueError(f"dataset must be 'nyu' or 'kitti' (got {self.dataset!r})")
+        if self.remat_policy not in ("conv", "full"):
+            raise ValueError(f"remat_policy must be 'conv' or 'full' (got {self.remat_policy!r})")
+        if self.remat_scope not in ("encoder", "all"):
+            raise ValueError(f"remat_scope must be 'encoder' or 'all' (got {self.remat_scope!r})")
+        if self.lpg_impl not in ("auto", "xla", "pallas", "ffi"):
+            raise ValueError(f"lpg_impl must be one of auto/xla/pallas/ffi (got {self.lpg_impl!r})")
+        if self.model_flavor not in ("pt", "tf", "auto"):
+            raise ValueError(
+                f"model_flavor must be 'pt', 'tf' or 'auto' (got {self.model_flavor!r})"
+            )
+        _ = self.resolved_normalization
+        return self
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    """One flag per Config field; ``@argfile`` with whitespace-separated
+    tokens, as the reference's args files are written."""
+    parser = argparse.ArgumentParser(description="BTS-TPU", fromfile_prefix_chars="@")
+    parser.convert_arg_line_to_args = lambda line: line.split()
+
+    defaults = Config()
+    for field in dataclasses.fields(Config):
+        flag = "--" + field.name
+        default = getattr(defaults, field.name)
+        if field.type == "bool" or isinstance(default, bool):
+            # Also --no-<name>, so default-True bools are controllable.
+            parser.add_argument(flag, action=argparse.BooleanOptionalAction, default=default)
+        elif field.name == "gpu":
+            parser.add_argument(flag, type=int, default=None)
+        else:
+            ftype = type(default) if default is not None else str
+            parser.add_argument(flag, type=ftype, default=default)
+    return parser
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> Config:

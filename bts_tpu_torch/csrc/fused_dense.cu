@@ -1,7 +1,8 @@
 // Fused DenseNet layer (inference) for NVIDIA Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the two Pallas TPU kernels of docs/archive/fused_dense.py:
-//   fused_dense_layer    (:167, body _kernel_taps :84)  -> fused_dense_taps_*
+//   fused_dense_layer    (:167, body _kernel_taps :84)  -> fused_dense_taps_f32
+//     (bf16: fused_dense_taps_bf16 in fused_dense_taps_sm90.cu, wgmma + TMA)
 //   fused_dense_layer_eo (:216, body _kernel_eo :109)   -> fused_dense_eo_*
 // Both compute one torchvision dense layer with the BatchNorms folded:
 //   y = dt(relu(x*s1 + b1)); t = f32(y . w1); z = dt(relu(t*s2 + b2));
@@ -24,9 +25,10 @@
 // practice this first design is bound by latency, not by the tensor cores:
 // each barrier-separated chunk holds only a few MMAs per warp, loads and
 // products never overlap, and at one image per launch the grid is a few
-// dozen blocks of one per SM. On an H100 80GB HBM3 at 700 W the bf16 taps
-// kernel reaches 9-38 TFLOP/s (1-4% of the bf16 peak), about half the rate
-// of cuDNN's unfused chain of the same layer.
+// dozen blocks of one per SM. On an H100 80GB HBM3 at 700 W its bf16 taps
+// form reached 9-38 TFLOP/s (1-4% of the bf16 peak), about half the rate of
+// cuDNN's unfused chain of the same layer, and was replaced by
+// fused_dense_taps_sm90.cu; the eo forms and f32 taps keep this design.
 //
 // Geometry. taps: a tile is TH x 16 output pixels (TH = 8, or 4 when the
 // image gives too few 8-row tiles to fill the card), halo (TH+2) x 18. eo: a
@@ -586,15 +588,6 @@ extern "C" int fused_dense_taps_f32(const void* x, long long sb, long long sh, l
                                     int C, int Cmid, int G, void* stream) {
   return taps<float>(x, sb, sh, sw, s1, b1, w1, s2, b2, w2, out, ob, oh, ow, B, H, W, C, Cmid,
                      G, stream);
-}
-
-extern "C" int fused_dense_taps_bf16(const void* x, long long sb, long long sh, long long sw,
-                                     const void* s1, const void* b1, const void* w1,
-                                     const void* s2, const void* b2, const void* w2, void* out,
-                                     long long ob, long long oh, long long ow, int B, int H,
-                                     int W, int C, int Cmid, int G, void* stream) {
-  return taps<bf16>(x, sb, sh, sw, s1, b1, w1, s2, b2, w2, out, ob, oh, ow, B, H, W, C, Cmid,
-                    G, stream);
 }
 
 // xe, xo: (B,H,U,C) even / odd columns, each through its strides. w2q:

@@ -34,7 +34,12 @@ import torch
 from torch import nn
 
 from bts_tpu_torch.models.layers import ENCODER_BN_EPS, TORCH_BN_MOMENTUM_ENCODER
-from bts_tpu_torch.ops.fused_dense import fold_bn, fused_dense_layer, pack_w2_eo
+from bts_tpu_torch.ops.fused_dense import (
+    fold_bn,
+    fused_dense_layer,
+    pack_taps_kmajor,
+    pack_w2_eo,
+)
 
 DENSE_IMPLS = ("auto", "taps", "eo", "plain")
 
@@ -70,9 +75,11 @@ class DenseLayer(nn.Module):
                 n2.weight, n2.bias, n2.running_mean, n2.running_var, self.conv2.weight)
 
     def folded(self, dtype: torch.dtype, eo: bool):
-        """(s1, b1, w1, s2, b2, w2, w2q) in ``dtype`` on the weights' device,
-        for the fused layer: BN folded in f32, w1 (C, Cmid), w2 (3,3,Cmid,G),
-        w2q = pack_w2_eo(w2) (None unless ``eo``).
+        """(s1, b1, w1, s2, b2, w2, w2q, kmajor) in ``dtype`` on the weights'
+        device, for the fused layer: BN folded in f32, w1 (C, Cmid), w2
+        (3,3,Cmid,G), w2q = pack_w2_eo(w2) (None unless ``eo``), kmajor =
+        pack_taps_kmajor(w1, w2) for the bf16 taps kernel (None for eo or
+        another dtype).
 
         Cached, keyed on every source tensor's storage and version, so
         load_state_dict, .to(), in-place changes to the BN statistics and a
@@ -94,16 +101,18 @@ class DenseLayer(nn.Module):
             w2 = c2.permute(2, 3, 1, 0)
             weights = [t.to(dtype).contiguous() for t in (s1, b1, w1, s2, b2, w2)]
             weights.append(pack_w2_eo(weights[5]) if eo else None)
+            bf16_taps = not eo and dtype == torch.bfloat16
+            weights.append(pack_taps_kmajor(weights[2], weights[5]) if bf16_taps else None)
         self._folded = (key, tuple(weights))
         return self._folded[1]
 
     def fused_into(self, buf: torch.Tensor, c: int, impl: str) -> None:
         """Read channels [0, c) of the NHWC buffer, write the layer's G new
         channels to [c, c + G)."""
-        s1, b1, w1, s2, b2, w2, w2q = self.folded(buf.dtype, impl == "eo")
+        s1, b1, w1, s2, b2, w2, w2q, kmajor = self.folded(buf.dtype, impl == "eo")
         g = w2.shape[3]
         fused_dense_layer(buf[..., :c], s1, b1, w1, s2, b2, w2, impl=impl, w2q=w2q,
-                          out=buf[..., c:c + g])
+                          out=buf[..., c:c + g], kmajor=kmajor)
 
 
 class DenseBlock(nn.ModuleDict):

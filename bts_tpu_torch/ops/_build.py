@@ -57,14 +57,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbts_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _check(cmd, proc):
+def _check(cmd, proc) -> str:
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}{err}")
+    return err
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into one shared library unless it already exists."""
+def build(ptxas_report: bool = False) -> Path:
+    """Compile csrc/*.cu into one shared library unless it already exists.
+    With ``ptxas_report``, print what ``-Xptxas -v`` says of each kernel
+    (registers, shared memory, spills)."""
     out = library_path()
     if out.is_file():
         return out
@@ -72,13 +75,16 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    report = ["-Xptxas", "-v"] if ptxas_report else []
+    cmds = [[nvcc, *NVCC_FLAGS, *report, "-c", "-o", str(obj), str(src)]
             for obj, src in zip(objs, _sources())]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
     try:
-        for cmd, proc in zip(cmds, procs):
-            _check(cmd, proc)
+        for cmd, proc, src in zip(cmds, procs, _sources()):
+            err = _check(cmd, proc)
+            if ptxas_report:
+                print(f"ptxas -v, {src.name}:\n{err}", end="")
         link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         _check(link, subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True))

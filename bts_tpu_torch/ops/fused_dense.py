@@ -60,6 +60,13 @@ def pack_w2_eo(w2: torch.Tensor) -> torch.Tensor:
     return w2q
 
 
+def pack_taps_kmajor(w1: torch.Tensor, w2: torch.Tensor):
+    """(w1t, w2t): the two kernels with K contiguous, as the bf16 taps kernel
+    reads its wgmma B operands: w1 (C, Cmid) -> (Cmid, C), w2 (3, 3, Cmid, G)
+    -> (3, 3, G, Cmid)."""
+    return w1.t().contiguous(), w2.permute(0, 1, 3, 2).contiguous()
+
+
 def _bottleneck(x, s1, b1, w1, s2, b2) -> torch.Tensor:
     """relu(bn1) -> 1x1 (f32 sum) -> relu(bn2), zero-padded by 1 in H and W;
     float32 holding dt values."""
@@ -107,14 +114,16 @@ def fused_dense_layer(
     impl: str = "taps",
     w2q: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
+    kmajor=None,
 ) -> torch.Tensor:
     """One dense layer, x (B,H,W,C) -> (B,H,W,G), by ``impl`` taps or eo.
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel, which
     raises on what it cannot take. ``w2q`` is ``pack_w2_eo(w2)``, computed
-    here when not given. ``out`` (B,H,W,G), when given, receives the result
-    (the kernel writes it in place: it may be a channel slice of a larger
-    NHWC buffer) and is returned.
+    here when not given; ``kmajor`` is ``pack_taps_kmajor(w1, w2)`` for the
+    bf16 taps kernel, computed by it when not given. ``out`` (B,H,W,G), when
+    given, receives the result (the kernel writes it in place: it may be a
+    channel slice of a larger NHWC buffer) and is returned.
     """
     if impl not in IMPLS:
         raise ValueError(f"fused dense impl must be one of {'/'.join(IMPLS)} (got {impl!r})")
@@ -141,7 +150,8 @@ def fused_dense_layer(
     from bts_tpu_torch.ops import fused_dense_cuda
 
     if impl == "taps":
-        return fused_dense_cuda.fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out=out)
+        return fused_dense_cuda.fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out=out,
+                                                 kmajor=kmajor)
     if out is None:
         out = torch.empty((b, h, w, g), dtype=x.dtype, device=x.device)
     fused_dense_cuda.fused_dense_eo_cuda(

@@ -1,7 +1,9 @@
-"""Wrappers of the hand-written CUDA fused dense layers (``csrc/fused_dense.cu``).
+"""Wrappers of the hand-written CUDA fused dense layers.
 
 The CUDA port of ``docs/archive/fused_dense.py``'s ``fused_dense_layer``
-(taps) and ``fused_dense_layer_eo`` (eo). Each wrapper checks its inputs,
+(taps: ``csrc/fused_dense_taps_sm90.cu`` in bf16, ``csrc/fused_dense.cu``
+in f32) and ``fused_dense_layer_eo`` (eo: ``csrc/fused_dense.cu``). Each
+wrapper checks its inputs,
 allocates the output with ``torch.empty`` unless it is given one, and
 launches on the current stream without synchronising. It never falls back
 to the plain versions in ``ops/fused_dense.py``: it launches or raises.
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from bts_tpu_torch.ops import _build
+from bts_tpu_torch.ops.fused_dense import pack_taps_kmajor
 
 # Kernel launches in this process; each bumped once per launch, nowhere else.
 TAPS_LAUNCHES = 0
@@ -27,6 +30,9 @@ EO_LAUNCHES = 0
 # bottleneck at most 192 channels wide, taken in steps of 32.
 MAX_CMID = 192
 MAX_G = 64
+# The bf16 taps kernel (csrc/fused_dense_taps_sm90.cu) is built for the
+# (Cmid, G) of DenseNet161 and DenseNet121.
+TAPS_BF16_SHAPES = ((192, 48), (128, 32))
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -84,9 +90,13 @@ def _run(fn, *args):
         raise RuntimeError(f"{fn} launch failed with CUDA error {rc}")
 
 
-def fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out: Optional[torch.Tensor] = None):
+def fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out: Optional[torch.Tensor] = None,
+                     kmajor=None):
     """CUDA taps layer. x (B,H,W,C) f32/bf16 -> (B,H,W,G); parameters in
-    x.dtype: s1, b1 (C,), w1 (C,Cmid), s2, b2 (Cmid,), w2 (3,3,Cmid,G)."""
+    x.dtype: s1, b1 (C,), w1 (C,Cmid), s2, b2 (Cmid,), w2 (3,3,Cmid,G).
+    bf16 reads the kernels K-major: ``kmajor`` = ``pack_taps_kmajor(w1, w2)``
+    (packed here when not given) and writes 16-byte vectors, so ``out``
+    must be 16-byte aligned with pixel strides in multiples of 8."""
     global TAPS_LAUNCHES
     dt, vec, c, cmid, g = _common(x, s1, b1, w1, s2, b2, w2, eo=False)
     b, h, w, _ = x.shape
@@ -95,7 +105,16 @@ def fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out: Optional[torch.Tensor] = No
         out = torch.empty((b, h, w, g), dtype=dt, device=x.device)
     elif tuple(out.shape) != (b, h, w, g):
         raise ValueError(f"out has shape {tuple(out.shape)}, expected {(b, h, w, g)}")
-    _check_map("out", out, dt, x.device, 1, aligned=False)
+    bf16 = dt == torch.bfloat16
+    _check_map("out", out, dt, x.device, vec, aligned=bf16)
+    if bf16:
+        if (cmid, g) not in TAPS_BF16_SHAPES:
+            raise ValueError(f"the bf16 taps kernel takes (Cmid, G) in {TAPS_BF16_SHAPES} "
+                             f"(got {(cmid, g)})")
+        if kmajor is None:
+            kmajor = pack_taps_kmajor(w1, w2)
+        w1, w2 = kmajor
+        _check_params(dt, x.device, {"w1t": (cmid, c), "w2t": (3, 3, g, cmid)}, w1t=w1, w2t=w2)
     if out.numel() == 0:
         return out
     _run(f"fused_dense_taps_{_SUFFIX[dt]}", x, *x.stride()[:3], s1, b1, w1, s2, b2, w2,

@@ -1,0 +1,111 @@
+"""Where a forward's time goes on the card: ``python -m bts_tpu_torch.tools.profile_forward``.
+
+DenseNet161-BTS NYU at full width (``bts_size`` 512), 480x640, seeded
+weights, bf16 autocast under ``inference_mode``; at each batch the dense
+layers run in turns plain, auto (the taps kernel), auto, plain. For each
+run: ``torch.profiler`` over 3 forwards gives the kernels per forward, the
+device time per forward and its split by kind of kernel; the wall time per
+forward comes from 10 forwards without the profiler, host clock around work
+that ends in a synchronise. Idle is 1 - device time / wall time. Prints one
+line per run and writes them as JSON to ``--out``
+(``build/profile_forward.json`` by default).
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+# Kinds of kernel, by the first pattern found in the lower-cased name.
+KINDS = (
+    ("fused dense", ("taps_sm90", "fused_dense")),
+    ("lpg", ("lpg_forward",)),
+    ("cat", ("catarray", "cat_")),
+    ("bn", ("batch_norm", "batchnorm", "bn_")),
+    ("conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90_")),
+    ("layout", ("nchw", "nhwc", "transpose", "permute", "copy")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("pool", ("pool",)),
+)
+
+
+def kind(name: str) -> str:
+    low = name.lower()
+    for label, patterns in KINDS:
+        if any(p in low for p in patterns):
+            return label
+    return "other"
+
+
+def profile_run(model, x, focal, dense_impl, forwards=3, timed=10):
+    model.encoder.dense_impl = dense_impl
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        for _ in range(3):
+            model(x, focal)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(forwards):
+                model(x, focal)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            model(x, focal)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / timed
+    kernels, device_us, by_kind = 0, 0.0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        device_us += us
+        if not e.name.startswith(("Memcpy", "Memset")):
+            kernels += 1
+        k = kind(e.name)
+        by_kind[k] = by_kind.get(k, 0.0) + us / 1e3 / forwards
+    device_ms = device_us / 1e3 / forwards
+    return {
+        "batch": x.shape[0], "dense_impl": dense_impl, "kernels": kernels // forwards,
+        "device_ms": device_ms, "wall_ms": wall_ms, "idle": 1.0 - device_ms / wall_ms,
+        "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+    }
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batches", type=int, nargs="+", default=[8, 1])
+    parser.add_argument("--out", default=os.path.join("build", "profile_forward.json"))
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward: no CUDA device")
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512)
+    model = create_model(cfg).cuda().eval()
+    gen = torch.Generator().manual_seed(1)
+    runs = []
+    for b in args.batches:
+        x = torch.randn(b, 3, 480, 640, generator=gen).cuda()
+        focal = torch.full((b,), 518.8579, device="cuda")
+        for dense_impl in ("plain", "auto", "auto", "plain"):
+            run = profile_run(model, x, focal, dense_impl)
+            run["device"] = smi
+            runs.append(run)
+            print(json.dumps(run), flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(runs, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -53,10 +53,15 @@ from PIL import Image
 NYU_SITES = [(8, 60, 80), (4, 120, 160), (2, 240, 320)]  # (r, grid h, grid w)
 LPG_SOURCE = "bts_tpu_torch/csrc/lpg.cu"
 LPG_REPLACES = "bts_tpu/ops/lpg_pallas.py:38"
-DENSE_SOURCE = "bts_tpu_torch/csrc/fused_dense.cu"
+DENSE_SOURCE = {"taps": "bts_tpu_torch/csrc/fused_dense_taps_sm90.cu",
+                "eo": "bts_tpu_torch/csrc/fused_dense.cu"}
 DENSE_REPLACES = {"taps": "docs/archive/fused_dense.py:167", "eo": "docs/archive/fused_dense.py:216"}
 DENSE_LAYERS = 78  # DenseNet161: 6 + 12 + 36 + 24
 DENSE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-4, atol=1e-4)}
+# One H100 SXM's published peaks (dense): bf16 tensor cores, f32 outside
+# them, and HBM3. The bounds below divide this run's work by them.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def phase(msg):
@@ -90,12 +95,36 @@ def cuda_median_ms(fn, samples=50, reps=10, warmup=5):
     return statistics.median(s.elapsed_time(e) / reps for s, e in events)
 
 
+def bound_ms(flops, nbytes, dtype_name):
+    """(ms, 'operations' or 'bytes'): the least time the card could take,
+    the larger of flops at the dtype's peak and bytes at the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def lpg_bound(b, h, w, r):
+    """LPG at one site: the (B,h,w,4) f32 planes read once, the
+    (B,h*r,w*r) f32 map written once; per output 2 mul, 2 add, 1 div."""
+    outputs = b * h * r * w * r
+    return bound_ms(5 * outputs, 4 * (b * h * w * 4 + outputs), "float32")
+
+
+def dense_work(b, h, w, c, cmid=192, g=48, esize=2):
+    """(flops, bytes) of one dense layer: the 1x1 and the 3x3 products; x
+    read once, out written once, and the folded weights read once."""
+    flops = 2 * b * h * w * (c * cmid + 9 * cmid * g)
+    nbytes = esize * (b * h * w * (c + g) + c * cmid + 9 * cmid * g + 2 * (c + cmid))
+    return flops, nbytes
+
+
 def check_kernel_against_plain(torch, lpg_cuda, lpg):
-    """Phase 3. Returns (max abs err, kernel ms, plain ms) summed over the
-    three NYU sites at batch 8 (one forward's worth of LPG)."""
+    """Phase 3. Returns (max abs err, kernel ms, plain ms, bound ms, bound
+    by) summed over the three NYU sites at batch 8 (one forward's worth of
+    LPG)."""
     gen = torch.Generator().manual_seed(0)
     cases = [(r, 8, h, w) for r, h, w in NYU_SITES] + [(8, 3, 5, 7)]
-    max_err, kernel_ms, plain_ms = 0.0, 0.0, 0.0
+    max_err, kernel_ms, plain_ms, bound = 0.0, 0.0, 0.0, 0.0
     for i, (r, b, h, w) in enumerate(cases):
         logits = torch.randn(b, h, w, 3, generator=gen).cuda()
         pe = lpg.normalize_plane(lpg.decode_plane_eq(logits, 10.0)).contiguous()
@@ -116,7 +145,8 @@ def check_kernel_against_plain(torch, lpg_cuda, lpg):
         if i < len(NYU_SITES):
             kernel_ms += k
             plain_ms += p
-    return max_err, kernel_ms, plain_ms
+            bound += lpg_bound(b, h, w, r)[0]
+    return max_err, kernel_ms, plain_ms, bound, "bytes"
 
 
 def densenet161_layer_shapes(h=480, w=640):
@@ -148,14 +178,50 @@ def seeded_dense_layer(torch, DenseLayer, c, gen):
 
 
 def check_dense_kernels(torch, fd, fdc, DenseLayer):
-    """Phase 3, the fused dense layer. Returns {impl: {dtype name: (max abs
-    err, kernel ms, plain ms)}} with the times summed over the shapes, and
-    {dtype name: ms} of the unfused cuDNN chain, also summed."""
+    """Phase 3, the fused dense layer. Returns {impl: {dtype name: [max abs
+    err, kernel ms, plain ms, bound ms, flops, bytes]}} summed over the
+    shapes at B=8, {dtype name: ms} of the unfused cuDNN chain, also summed,
+    and the bf16 taps kernel's sums at B=1 {max_abs_err, ms, plain_ms,
+    cudnn_chain_ms, bound_ms}."""
     gen = torch.Generator().manual_seed(3)
     launch = {"taps": fdc.fused_dense_cuda, "eo": fdc.fused_dense_eo_cuda}
     plain = {"taps": fd.fused_dense_reference, "eo": fd.fused_dense_eo_reference}
     res = {impl: {} for impl in launch}
     chain_ms = {}
+    live = dict.fromkeys(("max_abs_err", "ms", "plain_ms", "cudnn_chain_ms", "bound_ms"), 0.0)
+
+    def run(impl, name, args, kmajor, b, h, w, c):
+        """One synchronised launch against the plain version, then both timed."""
+        kw = {"kmajor": kmajor} if impl == "taps" else {}
+        counts = fdc.TAPS_LAUNCHES, fdc.EO_LAUNCHES
+        got = launch[impl](*args, **kw)
+        torch.cuda.synchronize()
+        added = fdc.TAPS_LAUNCHES - counts[0], fdc.EO_LAUNCHES - counts[1]
+        if added != ((1, 0) if impl == "taps" else (0, 1)):
+            raise RuntimeError(f"fused dense {impl}: launch counts moved by {added}")
+        want = plain[impl](*args)
+        torch.testing.assert_close(got, want, **DENSE_TOL[name])
+        err = (got.float() - want.float()).abs().max().item()
+        k = cuda_median_ms(lambda: launch[impl](*args, **kw), samples=20, reps=5)
+        p = cuda_median_ms(lambda: plain[impl](*args), samples=20, reps=5)
+        flops, nbytes = dense_work(b, h, w, c, esize=2 if name == "bfloat16" else 4)
+        bound, by = bound_ms(flops, nbytes, name)
+        print(f"dense {impl} {name} B={b} {h}x{w} C={c}: max_abs_err {err!r}, "
+              f"kernel {k!r} ms, plain {p!r} ms (median of 20 samples of 5 calls); "
+              f"bound {bound * 1e3!r} us by {by}, {bound / k:.2%} of it, "
+              f"{flops / k / 1e9!r} TFLOP/s")
+        return err, k, p, bound, (flops, nbytes)
+
+    def chain(layer, x, name, b, h, w, c):
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                                    enabled=name == "bfloat16"):
+            ch = cuda_median_ms(lambda: torch.cat([xn, layer(xn)], 1), samples=20, reps=5)
+        flops = dense_work(b, h, w, c)[0]
+        print(f"dense cuDNN chain {name} B={b} {h}x{w} C={c}: {ch!r} ms, "
+              f"{flops / ch / 1e9!r} TFLOP/s")
+        return ch
+
     for h, w, c in densenet161_layer_shapes():
         layer = seeded_dense_layer(torch, DenseLayer, c, gen)
         x32 = torch.randn(8, h, w, c, generator=gen).cuda()
@@ -163,31 +229,25 @@ def check_dense_kernels(torch, fd, fdc, DenseLayer):
             name = str(dt).removeprefix("torch.")
             x = x32.to(dt)
             for impl in ("taps", "eo"):
-                s1, b1, w1, s2, b2, w2, w2q = layer.folded(dt, impl == "eo")
+                s1, b1, w1, s2, b2, w2, w2q, kmajor = layer.folded(dt, impl == "eo")
                 args = ((x,) if impl == "taps" else (x[:, :, 0::2], x[:, :, 1::2])) + (
                     s1, b1, w1, s2, b2, w2 if impl == "taps" else w2q)
-                counts = fdc.TAPS_LAUNCHES, fdc.EO_LAUNCHES
-                got = launch[impl](*args)
-                torch.cuda.synchronize()
-                added = fdc.TAPS_LAUNCHES - counts[0], fdc.EO_LAUNCHES - counts[1]
-                if added != ((1, 0) if impl == "taps" else (0, 1)):
-                    raise RuntimeError(f"fused dense {impl}: launch counts moved by {added}")
-                want = plain[impl](*args)
-                torch.testing.assert_close(got, want, **DENSE_TOL[name])
-                err = (got.float() - want.float()).abs().max().item()
-                k = cuda_median_ms(lambda: launch[impl](*args), samples=20, reps=5)
-                p = cuda_median_ms(lambda: plain[impl](*args), samples=20, reps=5)
-                e0, k0, p0 = res[impl].get(name, (0.0, 0.0, 0.0))
-                res[impl][name] = (max(e0, err), k0 + k, p0 + p)
-                print(f"dense {impl} {name} B=8 {h}x{w} C={c}: max_abs_err {err!r}, "
-                      f"kernel {k!r} ms, plain {p!r} ms (median of 20 samples of 5 calls)")
-            xn = x.permute(0, 3, 1, 2).contiguous()
-            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16,
-                                                        enabled=dt == torch.bfloat16):
-                ch = cuda_median_ms(lambda: torch.cat([xn, layer(xn)], 1), samples=20, reps=5)
-            chain_ms[name] = chain_ms.get(name, 0.0) + ch
-            print(f"dense cuDNN chain {name} B=8 {h}x{w} C={c}: {ch!r} ms")
-    return res, chain_ms
+                err, k, p, bound, work = run(impl, name, args, kmajor, 8, h, w, c)
+                acc = res[impl].setdefault(name, [0.0, 0.0, 0.0, 0.0, 0, 0])
+                res[impl][name] = [max(acc[0], err), acc[1] + k, acc[2] + p, acc[3] + bound,
+                                   acc[4] + work[0], acc[5] + work[1]]
+            chain_ms[name] = chain_ms.get(name, 0.0) + chain(layer, x, name, 8, h, w, c)
+        # B=1, the live path, where the grid is smallest: the bf16 taps kernel.
+        x1 = x32[:1].to(torch.bfloat16)
+        s1, b1, w1, s2, b2, w2, _, kmajor = layer.folded(torch.bfloat16, False)
+        err, k, p, bound, _ = run("taps", "bfloat16", (x1, s1, b1, w1, s2, b2, w2), kmajor,
+                                  1, h, w, c)
+        live["max_abs_err"] = max(live["max_abs_err"], err)
+        live["ms"] += k
+        live["plain_ms"] += p
+        live["bound_ms"] += bound
+        live["cudnn_chain_ms"] += chain(layer, x1, "bfloat16", 1, h, w, c)
+    return res, chain_ms, live
 
 
 def write_nyu_frames(root, n=8, h=480, w=640):
@@ -263,20 +323,25 @@ def main():
 
     phase("2 build")
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    lib_path = _build.build(ptxas_report=True)
     _build.load_library()
     print(f"built {lib_path} in {time.perf_counter() - t0:.2f} s")
 
     phase("3 kernels against plain")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    max_err, kernel_ms, plain_ms = check_kernel_against_plain(torch, lpg_cuda, lpg)
-    print(f"three NYU sites at B=8: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms")
-    dense, chain_ms = check_dense_kernels(torch, fused_dense, fused_dense_cuda, DenseLayer)
+    lpg_res = check_kernel_against_plain(torch, lpg_cuda, lpg)
+    print(f"three NYU sites at B=8: kernel {lpg_res[1]!r} ms, plain {lpg_res[2]!r} ms, "
+          f"bound {lpg_res[3]!r} ms by bytes")
+    dense, chain_ms, live = check_dense_kernels(torch, fused_dense, fused_dense_cuda, DenseLayer)
     for impl, by_dt in dense.items():
-        for name, (err, k, p) in by_dt.items():
-            print(f"dense {impl} {name}, 8 shapes summed: kernel {k!r} ms, plain {p!r} ms, "
-                  f"cuDNN chain {chain_ms[name]!r} ms, max_abs_err {err!r}")
+        for name, (err, k, p, bound, _, _) in by_dt.items():
+            print(f"dense {impl} {name}, 8 shapes summed at B=8: kernel {k!r} ms, plain {p!r} ms, "
+                  f"cuDNN chain {chain_ms[name]!r} ms, bound {bound!r} ms ({bound / k:.2%}), "
+                  f"max_abs_err {err!r}")
+    print(f"dense taps bfloat16, 8 shapes summed at B=1: kernel {live['ms']!r} ms, plain "
+          f"{live['plain_ms']!r} ms, cuDNN chain {live['cudnn_chain_ms']!r} ms, bound "
+          f"{live['bound_ms']!r} ms, max_abs_err {live['max_abs_err']!r}")
 
     phase("4 port on the card against the port on the CPU, f32")
     cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512)
@@ -375,18 +440,32 @@ def main():
 
     if "jax" in sys.modules or "flax" in sys.modules:
         raise RuntimeError("jax was imported")
+    bts_tpu = sorted(m for m in sys.modules if m == "bts_tpu" or m.startswith("bts_tpu."))
+    if bts_tpu:
+        raise RuntimeError(f"the JAX package was imported: {bts_tpu}")
     print(smi)
+    # No single PyTorch call computes either function (library_ms null); the
+    # dense layers' yardstick is the unfused cuDNN chain, cudnn_chain_ms.
+    err, ms, plain_ms, bound, bound_by = lpg_res
     print(json.dumps({"kernels": [{
         "name": "lpg_forward_f32", "route": "cuda", "source": LPG_SOURCE,
-        "replaces": LPG_REPLACES, "launches": serving["lpg"], "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
+        "replaces": LPG_REPLACES, "launches": serving["lpg"],
+        "launches_per_forward": serving["lpg"] // forwards, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None,
     }] + [{
-        "name": f"fused_dense_{impl}_bf16", "route": "cuda", "source": DENSE_SOURCE,
+        "name": f"fused_dense_{impl}_bf16", "route": "cuda", "source": DENSE_SOURCE[impl],
         "replaces": DENSE_REPLACES[impl], "launches": launches[impl],
+        "launches_per_forward": launches[impl] // n_fwd,
         "max_abs_err": dense[impl]["bfloat16"][0], "ms": dense[impl]["bfloat16"][1],
-        "plain_ms": dense[impl]["bfloat16"][2], "cudnn_chain_ms": chain_ms["bfloat16"],
-        "f32": dict(zip(("max_abs_err", "ms", "plain_ms"), dense[impl]["float32"])),
-    } for impl, launches in (("taps", serving), ("eo", eo_path))]}))
+        "plain_ms": dense[impl]["bfloat16"][2], "bound_ms": dense[impl]["bfloat16"][3],
+        "bound_by": bound_ms(*dense[impl]["bfloat16"][4:], "bfloat16")[1],
+        "library_ms": None, "cudnn_chain_ms": chain_ms["bfloat16"],
+        **({"b1": live} if impl == "taps" else {}),
+        "f32": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"),
+                        dense[impl]["float32"][:4]),
+                    cudnn_chain_ms=chain_ms["float32"]),
+    } for impl, launches, n_fwd in (("taps", serving, forwards), ("eo", eo_path, 1))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -199,3 +199,23 @@ def test_weights_made_under_inference_mode_fold_each_call():
         for _ in range(2):
             for g, w in zip(enc(x), want(x), strict=True):
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,eo", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                      (torch.float32, False)])
+def test_folded_packs_kmajor_for_the_bf16_taps_kernel(dtype, eo):
+    """The bf16 taps kernel reads both kernels K-major: w1t is conv1's own
+    (Cmid, C) layout and w2t conv2's taps as (3, 3, G, Cmid)."""
+    layer = _randomize(densenet.DenseLayer(40, 8), 3).eval()
+    s1, b1, w1, s2, b2, w2, w2q, kmajor = layer.folded(dtype, eo)
+    if eo or dtype != torch.bfloat16:
+        assert kmajor is None
+        return
+    w1t, w2t = kmajor
+    assert w1t.is_contiguous() and w2t.is_contiguous() and w1t.dtype == w2t.dtype == dtype
+    torch.testing.assert_close(w1t, layer.conv1.weight[:, :, 0, 0].to(dtype), rtol=0, atol=0)
+    torch.testing.assert_close(w2t, layer.conv2.weight.permute(2, 3, 0, 1).to(dtype),
+                               rtol=0, atol=0)
+    assert tuple(map(torch.Tensor.tolist, fused_dense.pack_taps_kmajor(w1, w2))) == (
+        w1t.tolist(), w2t.tolist())
+    assert layer.folded(dtype, eo)[7] is kmajor  # cached

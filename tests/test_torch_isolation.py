@@ -1,6 +1,6 @@
-"""bts_tpu_torch never loads jax or flax: every slice module, and parsing the
-NYU test args file (whose --checkpoint_path would make bts_tpu's
-Config.validate sniff it through jax-backed modules).
+"""bts_tpu_torch never loads jax, flax or anything of bts_tpu: every slice
+module, and parsing the NYU test args file (whose --checkpoint_path would
+make bts_tpu's Config.validate sniff it through jax-backed modules).
 
 In a subprocess, because tests/conftest.py imports jax in this one.
 """
@@ -25,6 +25,12 @@ SLICE_MODULES = [
     "bts_tpu_torch.ops.fused_dense",
     "bts_tpu_torch.ops.fused_dense_cuda",
     "bts_tpu_torch.ops._build",
+    "bts_tpu_torch.data",
+    "bts_tpu_torch.data.manifest",
+    "bts_tpu_torch.data.transforms",
+    "bts_tpu_torch.data.loader",
+    "bts_tpu_torch.utils",
+    "bts_tpu_torch.utils.colorize",
     "bts_tpu_torch.models",
     "bts_tpu_torch.models.layers",
     "bts_tpu_torch.models.encoders.densenet",
@@ -33,6 +39,7 @@ SLICE_MODULES = [
     "bts_tpu_torch.models.convert",
     "bts_tpu_torch.apps.predict",
     "bts_tpu_torch.cli.test",
+    "bts_tpu_torch.tools.profile_forward",
 ]
 
 
@@ -43,7 +50,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "from bts_tpu_torch.config import parse_args\n"
         "cfg = parse_args(['configs/arguments_test_nyu.txt'])\n"
+        "bts = sorted(m for m in sys.modules if m == 'bts_tpu' or m.startswith('bts_tpu.'))\n"
         "print(json.dumps({'jax': 'jax' in sys.modules, 'flax': 'flax' in sys.modules,\n"
+        "  'bts_tpu': bts,\n"
         "  'flavor': cfg.model_flavor, 'norm': cfg.resolved_normalization,\n"
         "  'encoder': cfg.encoder}))\n"
     )
@@ -52,7 +61,7 @@ def test_port_imports_no_jax():
         check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "jax": False, "flax": False, "flavor": "pt", "norm": "imagenet",
+        "jax": False, "flax": False, "bts_tpu": [], "flavor": "pt", "norm": "imagenet",
         "encoder": "densenet161_bts",
     }
 
