@@ -1,45 +1,40 @@
-// Fused DenseNet layer (inference) for NVIDIA Hopper (sm_90a), f32 and bf16.
+// Fused DenseNet layer (inference), even/odd form, for NVIDIA Hopper (sm_90a),
+// f32 and bf16: fused_dense_eo_f32, fused_dense_eo_bf16.
 //
-// Replaces the two Pallas TPU kernels of docs/archive/fused_dense.py:
-//   fused_dense_layer    (:167, body _kernel_taps :84)  -> fused_dense_taps_f32
-//     (bf16: fused_dense_taps_bf16 in fused_dense_taps_sm90.cu, wgmma + TMA)
-//   fused_dense_layer_eo (:216, body _kernel_eo :109)   -> fused_dense_eo_*
-// Both compute one torchvision dense layer with the BatchNorms folded:
+// Replaces the Pallas TPU kernel fused_dense_layer_eo (docs/archive/
+// fused_dense.py:216, body _kernel_eo :109). The taps form of the same layer
+// (fused_dense_layer :167) is fused_dense_taps_sm90.cu (bf16) and
+// fused_dense_taps_f32_sm90.cu (f32, the dtype cli.test serves by default);
+// this file keeps the first design of both forms for eo alone (dense_impl
+// "eo", on no default path) until eo is redesigned as taps was.
+// It computes one torchvision dense layer with the BatchNorms folded:
 //   y = dt(relu(x*s1 + b1)); t = f32(y . w1); z = dt(relu(t*s2 + b2));
 //   out = dt(sum over the 3x3 taps of z . w2), z zero-padded by 1.
-// The TPU kernels hold one whole image in VMEM (grid = B). Here a block holds
+// The TPU kernel holds one whole image in VMEM (grid = B). Here a block holds
 // one output tile: it computes the bottleneck z for the tile plus a one-pixel
 // halo into shared memory, then runs the 3x3 from there. The 4g-wide
-// bottleneck never reaches device memory, and x is read once per tile (plus
-// the halo's recomputation: 180 bottleneck pixels for 128 outputs at 8x16).
+// bottleneck never reaches device memory.
 //
 // Bound. By its counts the layer is bound by operations: DenseNet161 at
 // 480x640 does about 40.7 GMAC per image in these layers (1x1 22.2, 3x3
 // 18.5) and reads about 0.23 GB of layer input in bf16. bf16 runs both
 // products on the tensor cores through WMMA (16x16x16 bf16 fragments, f32
-// accumulators held in registers across the whole K loop). f32 runs plain
-// FMAs from shared memory (a register tile per thread): TF32 would not keep
-// f32's accuracy, and f32 is the comparison path, not the served one.
+// accumulators held in registers across the whole K loop); f32 runs plain
+// FMAs from shared memory (a register tile per thread).
 // Both products are K loops over 32-wide chunks staged in shared memory with
-// a __syncthreads on each side: no TMA, no wgmma, no double buffering. So in
-// practice this first design is bound by latency, not by the tensor cores:
-// each barrier-separated chunk holds only a few MMAs per warp, loads and
-// products never overlap, and at one image per launch the grid is a few
-// dozen blocks of one per SM. On an H100 80GB HBM3 at 700 W its bf16 taps
-// form reached 9-38 TFLOP/s (1-4% of the bf16 peak), about half the rate of
-// cuDNN's unfused chain of the same layer, and was replaced by
-// fused_dense_taps_sm90.cu; the eo forms and f32 taps keep this design.
+// a __syncthreads on each side: no TMA, no wgmma, no double buffering. So
+// this design is bound by latency, not by the tensor cores: each
+// barrier-separated chunk holds only a few MMAs per warp, and loads and
+// products never overlap. On an H100 80GB HBM3 at 700 W its bf16 form takes
+// about 2.9x the time of cuDNN's unfused chain of the same layer (PERF.md).
 //
-// Geometry. taps: a tile is TH x 16 output pixels (TH = 8, or 4 when the
-// image gives too few 8-row tiles to fill the card), halo (TH+2) x 18. eo: a
-// tile is 3 rows x 16 column pairs (32 output columns), halo 5 x 34; the
-// halo is the interleaved image rebuilt from xe and xo, so local column 2u
-// holds zo[u-1], 2u+1 ze[u], 2u+2 zo[u], 2u+3 ze[u+1]: the four taps of
-// pack_w2_eo. In both, one row of the 3x3 product's M dimension is 16 pixels
-// (or pairs) of one output row, so a 16-row WMMA tile of A is 16 rows of the
-// bottleneck tile at a constant stride (1 pixel for taps, 2 for eo). The 3x3
-// is one K loop over the flattened kernel: (9*Cmid, G) for taps, the packed
-// (12*Cmid, 2G) for eo (4/3 the FLOPs, as on the TPU: its zero blocks are
+// Geometry. A tile is 3 rows x 16 column pairs (32 output columns), halo
+// 5 x 34; the halo is the interleaved image rebuilt from xe and xo, so local
+// column 2u holds zo[u-1], 2u+1 ze[u], 2u+2 zo[u], 2u+3 ze[u+1]: the four
+// taps of pack_w2_eo. One row of the 3x3 product's M dimension is 16 column pairs of
+// one output row, so a 16-row WMMA tile of A is 16 rows of the bottleneck
+// tile at a stride of 2 pixels. The 3x3 is one K loop over the packed
+// (12*Cmid, 2G) kernel (4/3 the FLOPs, as on the TPU: its zero blocks are
 // multiplied, not skipped). Pixels outside the image are 0 in z, not the
 // bottleneck of a zero input.
 //
@@ -67,22 +62,22 @@ constexpr int kMaxCmid = 192;   // bottleneck channels
 constexpr int kCols = 16;       // 3x3 product rows per output row of a tile
 constexpr int kStLd = 20;       // per-warp f32 staging tile, 16 x 20 floats
 
-template <bool EO, int TH>
 struct Geom {
-  static constexpr int kTW = EO ? 2 * kCols : kCols;          // output columns per tile
+  static constexpr int TH = 3;                                 // output rows per tile
+  static constexpr int kTW = 2 * kCols;                        // output columns per tile
   static constexpr int kHaloW = kTW + 2;
   static constexpr int kHaloP = (TH + 2) * kHaloW;             // bottleneck pixels
   static constexpr int kHaloPp = (kHaloP + 15) / 16 * 16;      // as rows of 16
   static constexpr int kM2 = TH * kCols;                       // 3x3 product rows
-  static constexpr int kTapsPerRow = EO ? 4 : 3;
-  static constexpr int kColMul = EO ? 2 : 1;
-  static constexpr int kMaxN2 = EO ? 128 : 64;                 // 2G or G
+  static constexpr int kTapsPerRow = 4;                        // lane-concat blocks
+  static constexpr int kColMul = 2;                            // pixels per pair
+  static constexpr int kMaxN2 = 128;                           // 2G
   // WMMA warp grids: stage 1 (bottleneck, M = halo pixels, N = Cmid), stage 2
   // (3x3, M = kM2, N = N2). Each warp owns the tiles (wm + WM*i, wn + WN*j).
   static constexpr int kWM1 = 4, kWN1 = kWarps / kWM1;
   static constexpr int kMI1 = (kHaloPp / 16 + kWM1 - 1) / kWM1;
   static constexpr int kNI1 = (kMaxCmid / 16 + kWN1 - 1) / kWN1;
-  static constexpr int kWM2 = TH >= 8 ? 8 : 4, kWN2 = kWarps / kWM2;
+  static constexpr int kWM2 = 4, kWN2 = kWarps / kWM2;
   static constexpr int kMI2 = (TH + kWM2 - 1) / kWM2;
   static constexpr int kNI2 = (kMaxN2 / 16 + kWN2 - 1) / kWN2;
   // FMA thread grid (f32): 32 row groups x 16 column groups.
@@ -94,13 +89,13 @@ struct Geom {
 };
 
 struct Params {
-  const void* x0;  // taps: x; eo: xe
-  const void* x1;  // eo: xo
+  const void* x0;  // xe
+  const void* x1;  // xo
   int64_t sx0[3], sx1[3];  // b, h, w strides in elements
   const void *s1, *b1, *w1, *s2, *b2, *w2;
   void* out;
-  int64_t so[4];  // b, h, w (eo: column pair), parity (eo)
-  int B, H, W;    // W: columns of the full image (eo: 2U)
+  int64_t so[4];  // b, h, column pair, parity
+  int B, H, W;    // W: columns of the full image (2U)
   int C, Cmid, G, N2, N2p;
   int tiles_h, tiles_w;
 };
@@ -164,9 +159,9 @@ struct Vec {
   }
 };
 
-template <typename T, bool EO, int TH>
+template <typename T>
 struct Tile {
-  using G = Geom<EO, TH>;
+  using G = Geom;
   const Params& p;
   int b, oy0, ox0;
 
@@ -176,10 +171,10 @@ struct Tile {
     const int gy = oy0 - 1 + r / G::kHaloW;
     const int gx = ox0 - 1 + r % G::kHaloW;
     if (gy < 0 || gy >= p.H || gx < 0 || gx >= p.W) return false;
-    if (EO && (gx & 1)) {
+    if (gx & 1) {
       px = static_cast<const T*>(p.x1) + b * p.sx1[0] + gy * p.sx1[1] + (gx >> 1) * p.sx1[2];
     } else {
-      const int col = EO ? gx >> 1 : gx;
+      const int col = gx >> 1;
       px = static_cast<const T*>(p.x0) + b * p.sx0[0] + gy * p.sx0[1] + col * p.sx0[2];
     }
     return true;
@@ -195,20 +190,20 @@ struct Tile {
   __device__ __forceinline__ void store_out(int r, int n, float v) const {
     if (n >= p.N2) return;
     const int oy = oy0 + r / kCols;
-    const int col = (EO ? ox0 / 2 : ox0) + r % kCols;
-    if (oy >= p.H || col >= (EO ? p.W / 2 : p.W)) return;
+    const int col = ox0 / 2 + r % kCols;
+    if (oy >= p.H || col >= p.W / 2) return;
     int64_t off = b * p.so[0] + oy * p.so[1] + col * p.so[2];
-    off += EO ? (n >= p.G) * p.so[3] + (n >= p.G ? n - p.G : n) : n;
+    off += (n >= p.G) * p.so[3] + (n >= p.G ? n - p.G : n);
     static_cast<T*>(p.out)[off] = from_f<T>(v);
   }
 };
 
 // Stage-1 chunk: As = y for channels [k0, k0+32) of every halo pixel,
 // Bs = w1 rows [k0, k0+32). Zero where out of range.
-template <typename T, bool EO, int TH>
-__device__ __forceinline__ void load_chunk1(const Tile<T, EO, TH>& tile, const Layout& L,
+template <typename T>
+__device__ __forceinline__ void load_chunk1(const Tile<T>& tile, const Layout& L,
                                             T* As, T* Bs, int k0) {
-  using G = Geom<EO, TH>;
+  using G = Geom;
   constexpr int V = Vec<T>::N;
   constexpr int kVecs = kKC / V;
   const Params& p = tile.p;
@@ -267,8 +262,8 @@ __device__ __forceinline__ void load_chunk2(const Params& p, const Layout& L, T*
 }
 
 // z = dt(relu(acc*s2 + b2)) for bottleneck row r, channel n; 0 outside the image.
-template <typename T, bool EO, int TH>
-__device__ __forceinline__ float bottleneck_value(const Tile<T, EO, TH>& tile, int r, int n,
+template <typename T>
+__device__ __forceinline__ float bottleneck_value(const Tile<T>& tile, int r, int n,
                                                   float acc) {
   const T* unused = nullptr;
   if (!tile.halo_pixel(r, unused)) return 0.f;
@@ -278,10 +273,9 @@ __device__ __forceinline__ float bottleneck_value(const Tile<T, EO, TH>& tile, i
 }
 
 // ---- bf16: both products on the tensor cores (WMMA) ----
-template <bool EO, int TH>
-__device__ __forceinline__ void run_wmma(const Tile<bf16, EO, TH>& tile, const Layout& L,
+__device__ __forceinline__ void run_wmma(const Tile<bf16>& tile, const Layout& L,
                                          bf16* Zs, bf16* As, bf16* Bs, float* St) {
-  using G = Geom<EO, TH>;
+  using G = Geom;
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
   using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -365,7 +359,7 @@ __device__ __forceinline__ void run_wmma(const Tile<bf16, EO, TH>& tile, const L
 #pragma unroll
         for (int i = 0; i < G::kMI2; ++i) {
           const int mt = wm + G::kWM2 * i;
-          if (mt >= TH) continue;
+          if (mt >= G::TH) continue;
           FragA a;
           wmma::load_matrix_sync(a, Zs + tile.zrow(mt * 16, t) * L.ldz + m0 + kk,
                                  G::kColMul * L.ldz);
@@ -381,7 +375,7 @@ __device__ __forceinline__ void run_wmma(const Tile<bf16, EO, TH>& tile, const L
 #pragma unroll
       for (int j = 0; j < G::kNI2; ++j) {
         const int mt = wm + G::kWM2 * i, nt = wn + G::kWN2 * j;
-        if (mt >= TH || nt >= nt2) continue;
+        if (mt >= G::TH || nt >= nt2) continue;
         wmma::store_matrix_sync(st, acc[i][j], kStLd, wmma::mem_row_major);
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
@@ -394,10 +388,9 @@ __device__ __forceinline__ void run_wmma(const Tile<bf16, EO, TH>& tile, const L
 }
 
 // ---- f32: both products as FMAs from shared memory ----
-template <bool EO, int TH>
-__device__ __forceinline__ void run_fma(const Tile<float, EO, TH>& tile, const Layout& L,
+__device__ __forceinline__ void run_fma(const Tile<float>& tile, const Layout& L,
                                         float* Zs, float* As, float* Bs) {
-  using G = Geom<EO, TH>;
+  using G = Geom;
   const Params& p = tile.p;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 
@@ -485,11 +478,11 @@ __device__ __forceinline__ void run_fma(const Tile<float, EO, TH>& tile, const L
   }
 }
 
-template <typename T, bool EO, int TH>
+template <typename T>
 // __grid_constant__: Tile keeps a reference to p without a copy to local memory.
 __global__ void __launch_bounds__(kThreads, 1)
     fused_dense_kernel(const __grid_constant__ Params p) {
-  using G = Geom<EO, TH>;
+  using G = Geom;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout(sizeof(T), G::kHaloPp, p.Cmid, p.N2p);
   T* Zs = reinterpret_cast<T*>(smem);
@@ -500,35 +493,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tx = blk % p.tiles_w;
   blk /= p.tiles_w;
   const int ty = blk % p.tiles_h;
-  const Tile<T, EO, TH> tile{p, blk / p.tiles_h, ty * TH, tx * G::kTW};
+  const Tile<T> tile{p, blk / p.tiles_h, ty * G::TH, tx * G::kTW};
   if constexpr (std::is_same<T, bf16>::value) {
-    run_wmma<EO, TH>(tile, L, Zs, As, Bs, reinterpret_cast<float*>(smem + L.st_off));
+    run_wmma(tile, L, Zs, As, Bs, reinterpret_cast<float*>(smem + L.st_off));
   } else {
-    run_fma<EO, TH>(tile, L, Zs, As, Bs);
+    run_fma(tile, L, Zs, As, Bs);
   }
 }
 
-template <typename T, bool EO, int TH>
+template <typename T>
 int launch(Params p, cudaStream_t stream) {
-  using G = Geom<EO, TH>;
-  p.tiles_h = (p.H + TH - 1) / TH;
+  using G = Geom;
+  p.tiles_h = (p.H + G::TH - 1) / G::TH;
   p.tiles_w = (p.W + G::kTW - 1) / G::kTW;
   const int64_t blocks = static_cast<int64_t>(p.B) * p.tiles_h * p.tiles_w;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L = make_layout(sizeof(T), G::kHaloPp, p.Cmid, p.N2p);
-  cudaError_t err = cudaFuncSetAttribute(fused_dense_kernel<T, EO, TH>,
+  cudaError_t err = cudaFuncSetAttribute(fused_dense_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_dense_kernel<T, EO, TH><<<static_cast<unsigned int>(blocks), kThreads, L.bytes,
-                                  stream>>>(p);
+  fused_dense_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, L.bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Checks the shapes and fills the derived sizes; false on what the kernel cannot take.
 template <typename T>
-bool finish_params(Params& p, bool eo) {
+bool finish_params(Params& p) {
   constexpr int V = 16 / sizeof(T);
-  p.N2 = eo ? 2 * p.G : p.G;
+  p.N2 = 2 * p.G;
   p.N2p = (p.N2 + 15) / 16 * 16;
   if (p.B <= 0 || p.H <= 0 || p.W <= 0 || p.C <= 0) return false;
   if (p.C % V || p.Cmid % kKC || p.Cmid > kMaxCmid || p.G % 8 || p.G <= 0 || p.G > 64) return false;
@@ -536,26 +528,6 @@ bool finish_params(Params& p, bool eo) {
     if (p.sx0[i] % V || p.sx1[i] % V) return false;
   }
   return true;
-}
-
-template <typename T>
-int taps(const void* x, long long sb, long long sh, long long sw, const void* s1, const void* b1,
-         const void* w1, const void* s2, const void* b2, const void* w2, void* out, long long ob,
-         long long oh, long long ow, int B, int H, int W, int C, int Cmid, int G, void* stream) {
-  Params p{};
-  p.x0 = p.x1 = x;
-  p.sx0[0] = p.sx1[0] = sb;
-  p.sx0[1] = p.sx1[1] = sh;
-  p.sx0[2] = p.sx1[2] = sw;
-  p.s1 = s1; p.b1 = b1; p.w1 = w1; p.s2 = s2; p.b2 = b2; p.w2 = w2;
-  p.out = out;
-  p.so[0] = ob; p.so[1] = oh; p.so[2] = ow; p.so[3] = 0;
-  p.B = B; p.H = H; p.W = W; p.C = C; p.Cmid = Cmid; p.G = G;
-  if (!finish_params<T>(p, false)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 8-row tiles, unless they leave most of the card's 132 SMs without two blocks.
-  const int64_t tiles8 = static_cast<int64_t>(B) * ((H + 7) / 8) * ((W + kCols - 1) / kCols);
-  return tiles8 >= 256 ? launch<T, false, 8>(p, s) : launch<T, false, 4>(p, s);
 }
 
 template <typename T>
@@ -571,24 +543,11 @@ int eo(const void* xe, long long eb, long long eh, long long eu, const void* xo,
   p.out = out;
   p.so[0] = pb; p.so[1] = ph; p.so[2] = pu; p.so[3] = pp;
   p.B = B; p.H = H; p.W = 2 * U; p.C = C; p.Cmid = Cmid; p.G = G;
-  if (!finish_params<T>(p, true)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<T, true, 3>(p, static_cast<cudaStream_t>(stream));
+  if (!finish_params<T>(p)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
-
-// x: (B,H,W,C) through strides (sb, sh, sw), channels contiguous. s1, b1 (C);
-// w1 (C,Cmid); s2, b2 (Cmid); w2 (3,3,Cmid,G), all contiguous, in x's type.
-// out: (B,H,W,G) through strides (ob, oh, ow). Launches on `stream` and
-// returns cudaGetLastError() (cudaErrorInvalidValue for shapes it cannot take).
-extern "C" int fused_dense_taps_f32(const void* x, long long sb, long long sh, long long sw,
-                                    const void* s1, const void* b1, const void* w1,
-                                    const void* s2, const void* b2, const void* w2, void* out,
-                                    long long ob, long long oh, long long ow, int B, int H, int W,
-                                    int C, int Cmid, int G, void* stream) {
-  return taps<float>(x, sb, sh, sw, s1, b1, w1, s2, b2, w2, out, ob, oh, ow, B, H, W, C, Cmid,
-                     G, stream);
-}
 
 // xe, xo: (B,H,U,C) even / odd columns, each through its strides. w2q:
 // (3, 4*Cmid, 2G) from pack_w2_eo. out: (B,H,U,2,G) through strides (pb, ph,

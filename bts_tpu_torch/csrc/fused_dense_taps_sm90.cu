@@ -2,9 +2,10 @@
 // fused_dense_taps_bf16.
 //
 // Replaces the Pallas TPU kernel fused_dense_layer (docs/archive/fused_dense.py
-// :167, body _kernel_taps :84) in bf16; the f32 taps and both eo forms stay in
-// fused_dense.cu. It computes one torchvision dense layer with the BatchNorms
-// folded, at the rounding points of ops/fused_dense.py::fused_dense_reference:
+// :167, body _kernel_taps :84) in bf16; f32 is fused_dense_taps_f32_sm90.cu,
+// both eo forms stay in fused_dense.cu, the PTX helpers are in sm90.cuh. It
+// computes one torchvision dense layer with the BatchNorms folded, at the
+// rounding points of ops/fused_dense.py::fused_dense_reference:
 //   y = bf16(relu(bf16(bf16(x*s1) + b1)));  t = f32(y . w1);
 //   z = bf16(relu(t*s2 + b2)), 0 at a halo pixel outside the image;
 //   out = bf16(sum over the 3x3 taps of z . w2).
@@ -74,14 +75,13 @@
 // (Cmid, C) and w2t the 3x3 as (3, 3, G, Cmid), both contiguous: K-major, as
 // wgmma reads B. Every launch returns the first CUDA error met.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include "sm90.cuh"
 
 namespace {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTH = 8, kTW = 16;                  // output tile
@@ -136,122 +136,6 @@ struct TapsParams {
   int64_t so[3];   // out strides (b, h, w) in elements
   int H, W, C, tiles_h, tiles_w;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// The cluster barrier: arrive (release) and wait (acquire). The .aligned forms
-// need the whole warp; cluster_arrive_thread lets one thread arrive alone.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_thread() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// Stores v at shared address `addr` of CTA `rank` of the cluster.
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t rank, uint32_t v) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
-  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(remote), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spins until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// wgmma descriptor of a K-major operand with the 128-byte swizzle: rows of 64
-// bf16 (128 bytes), 8-row atoms 1024 bytes apart (SBO); LBO unused.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Ties registers to this point, so the compiler neither reads an accumulator
-// before the wgmma that writes it has retired nor reuses an A register the
-// wgmma still reads.
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 #define ACC8(d, i)                                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),             \
@@ -605,45 +489,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so the library needs
-// no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-// A bf16 tensor map with the 128-byte swizzle and zero fill; strides in bytes.
-bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int CMID, int G, int SPLIT>
 int launch(TapsParams& p, const void* x, const long long* sx, const void* w1t,
            const void* w2t, int B, cudaStream_t stream) {
@@ -660,9 +505,9 @@ int launch(TapsParams& p, const void* x, const long long* sx, const void* w1t,
   const cuuint64_t w2dims[2] = {CMID, 9 * G};
   const cuuint64_t w2strides[1] = {CMID * 2};
   const cuuint32_t w2box[2] = {kKC, K::kN2};
-  if (!make_map(&p.x, x, 4, xdims, xstrides, xbox) ||
-      !make_map(&p.w1, w1t, 2, w1dims, w1strides, w1box) ||
-      !make_map(&p.w2, w2t, 2, w2dims, w2strides, w2box)) {
+  if (!make_map(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 4, xdims, xstrides, xbox) ||
+      !make_map(&p.w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w1t, 2, w1dims, w1strides, w1box) ||
+      !make_map(&p.w2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w2t, 2, w2dims, w2strides, w2box)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = static_cast<long long>(B) * p.tiles_h * p.tiles_w * SPLIT;
@@ -686,16 +531,6 @@ int launch(TapsParams& p, const void* x, const long long* sx, const void* w1t,
   err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
-}
-
-// SMs of the current device (the grid's yardstick).
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return 0;
-  }
-  return sms;
 }
 
 }  // namespace

@@ -1,82 +1,173 @@
-// Local Planar Guidance forward for NVIDIA Hopper (sm_90a).
+// Local Planar Guidance forward for NVIDIA Hopper (sm_90a), with the
+// decoder's scale and cast fused into the epilogue: lpg_forward.
 //
 // Replaces the Pallas TPU kernel bts_tpu/ops/lpg_pallas.py::_lpg_kernel
 // (launched by _lpg_pallas_fwd_impl with one program per image). That kernel
 // widened the (H, W) plane grid to (H*r, W*r) with a one-hot matmul on the
-// TPU's matrix unit; nothing here needs that: each thread reads its own cell.
+// TPU's matrix unit; nothing here needs that: each thread reads its own cells.
 //
 //   depth[b, y, x] = n4 / ((n1*u + n2*v) + n3),  (n1..n4) = plane_eq[b, y/r, x/r]
 //   u = ((x % r) - (r-1)/2) / r,  v = ((y % r) - (r-1)/2) / r
+//   out = T(depth * inv_scale)
 //
-// Bound: bytes. The kernel reads 16*B*H*W bytes and writes 4*B*H*W*r^2; it
-// does 2 multiplies, 2 adds and 1 divide per output float. For the three NYU
-// eval sites of one 480x640 image, (r, grid) = (8, 60x80), (4, 120x160),
-// (2, 240x320), that is about 1.6 MB read and 3.7 MB written per image: about
-// 1.6 us per image at 3.35 TB/s. At small batch the launch overhead (a few us)
-// dominates. As written, the kernel does not reach that bound: on an H100 it
-// stores about 0.8 TB/s, because each output costs three IEEE divides and the
-// integer index math (about 100 instructions); see PERF.md for the numbers
-// and the next step (several outputs per thread, 16-byte stores).
+// with T f32 or bf16 (round to nearest even). The decoder's site is
+// (lpg(plane_eq, r) / max_depth).to(dtype); PyTorch's CUDA division of a
+// tensor by a Python float multiplies by the f32 reciprocal, so the wrapper
+// passes inv_scale = f32(1 / f32(max_depth)) (1 for the bare LPG, which the
+// multiply leaves exact) and the kernel gives the composition's bits.
 //
-// Design: a 2-D grid. blockIdx.x is one output row (b, y) of B*H*r rows;
-// blockIdx.y and the thread index give x, fastest, so a warp stores 32
-// consecutive floats (128 bytes). A block therefore needs no 64-bit division
-// to find its row: the first version, one 1-D grid with 64-bit div/mod per
-// thread, was 1.2x slower on the H100. Each thread loads its
-// cell's four floats as one 16-byte float4 from the contiguous (B, H, W, 4)
-// input (the wrapper checks 16-byte alignment); the r neighbours along x
-// share that cell, so the load is served from L1. Only the flat offsets are
-// 64-bit. The arithmetic uses __fmul_rn / __fadd_rn / __fdiv_rn so that nvcc
-// cannot contract it into FMAs or reassociate it: the result then equals the
-// plain PyTorch version (separate multiply, add and IEEE divide) to the last
-// bit. That matters because den can come near 0: at r = 8, |u|, |v| <= 7/16
-// and theta <= pi/3 give n3 >= 0.5 while |n1*u + n2*v| can reach about 0.54.
-// No TMA, wgmma or tiling: the kernel is memory-bound and simple.
+// Bound: bytes. The kernel reads 16*B*H*W bytes and writes sizeof(T) *
+// B*H*W*r^2. For the three NYU eval sites of one 480x640 image, (r, grid) =
+// (8, 60x80), (4, 120x160), (2, 240x320), that is 1.6 MB read and 1.8 MB
+// (bf16) or 3.7 MB (f32) written per image. With one output per thread, three
+// IEEE divides and integer index math per output, a kernel is bound by
+// instructions per output (on an H100, 28% of the f32 bound). This design:
+// - each thread owns CPT neighbouring cells along W (CPT = 1, or 2-4 where r
+//   and T make a cell row narrower than 16 bytes) and loads each cell's
+//   float4 once;
+// - the offsets u[i] = (i - (r-1)/2) / r are computed once (__fdiv_rn, the
+//   plain version's bits), and with them n1*u[i] and n2*u[j] for the cell:
+//   each output then costs two adds, one IEEE divide (__fdiv_rn) and the
+//   epilogue, with no integer division;
+// - neighbouring threads own neighbouring cells, so each of the r output rows
+//   of a warp is one contiguous store of 32 x 16 bytes (32 bytes for f32 at r
+//   = 8), written as 16-byte vectors where the row pitch and the pointer
+//   allow, else element by element.
+// The arithmetic keeps bts_tpu's order with __fmul_rn / __fadd_rn so nvcc
+// cannot contract it into FMAs: den can come near 0 (at r = 8, |u|, |v| <=
+// 7/16 and theta <= pi/3 give n3 >= 0.5 while |n1*u + n2*v| can reach about
+// 0.54). No TMA, wgmma or shared memory: the kernel is memory-bound and
+// simple.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
+using bf16 = __nv_bfloat16;
 
-__global__ void lpg_forward_kernel(const float4* __restrict__ plane_eq,
-                                   float* __restrict__ out, int H, int W, int r) {
-  const int wr = W * r;
-  const int x = blockIdx.y * blockDim.x + threadIdx.x;
-  if (x >= wr) return;
-  const int hr = H * r;
-  const int row = blockIdx.x;  // b * hr + y
-  const int b = row / hr;
-  const int y = row - b * hr;
-  const int cx = x / r;
-  const int cy = y / r;
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-  const float4 n = __ldg(&plane_eq[(static_cast<int64_t>(b) * H + cy) * W + cx]);
-  const float half = static_cast<float>(r - 1) * 0.5f;
-  const float fr = static_cast<float>(r);
-  const float u = __fdiv_rn(__fsub_rn(static_cast<float>(x - cx * r), half), fr);
-  const float v = __fdiv_rn(__fsub_rn(static_cast<float>(y - cy * r), half), fr);
-  const float den = __fadd_rn(__fadd_rn(__fmul_rn(n.x, u), __fmul_rn(n.y, v)), n.z);
-  out[static_cast<int64_t>(row) * wr + x] = __fdiv_rn(n.w, den);
+// 16 bytes of T from floats.
+__device__ __forceinline__ uint4 pack16(const float* v, float) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint4 pack16(const float* v, bf16) {
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                    pack_bf16(v[6], v[7]));
+}
+
+// Cells per thread: enough for a 16-byte row segment.
+template <int R, typename T>
+__host__ __device__ constexpr int cells_per_thread() {
+  return R * static_cast<int>(sizeof(T)) >= 16 ? 1 : 16 / (R * static_cast<int>(sizeof(T)));
+}
+
+// blockIdx.x: cell row b * H + cy; blockIdx.y * blockDim.x + threadIdx.x: the
+// group of CPT cells along W.
+template <int R, typename T>
+__global__ void lpg_kernel(const float4* __restrict__ plane_eq, T* __restrict__ out, int W,
+                           float inv_scale, bool vec) {
+  constexpr int CPT = cells_per_thread<R, T>();
+  constexpr int SEG = CPT * R;               // outputs of one thread in one row
+  constexpr int V = 16 / sizeof(T);          // outputs per 16-byte vector
+  const int cx0 = (blockIdx.y * blockDim.x + threadIdx.x) * CPT;
+  if (cx0 >= W) return;
+  const int row = blockIdx.x;  // b * H + cy
+  const int cells = min(CPT, W - cx0);
+
+  float u[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    u[i] = __fdiv_rn(__fsub_rn(static_cast<float>(i), (R - 1) * 0.5f), static_cast<float>(R));
+  }
+  float4 n[CPT];
+  float a[CPT][R];  // n1 * u[i]
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    n[k] = k < cells ? __ldg(&plane_eq[static_cast<int64_t>(row) * W + cx0 + k])
+                     : make_float4(0.f, 0.f, 1.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[k][i] = __fmul_rn(n[k].x, u[i]);
+  }
+
+  const int64_t wr = static_cast<int64_t>(W) * R;
+  T* base = out + static_cast<int64_t>(row) * R * wr + static_cast<int64_t>(cx0) * R;
+  const bool full = vec && cells == CPT;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    float v[SEG];
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const float bj = __fmul_rn(n[k].y, u[j]);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float den = __fadd_rn(__fadd_rn(a[k][i], bj), n[k].z);
+        v[k * R + i] = __fmul_rn(__fdiv_rn(n[k].w, den), inv_scale);
+      }
+    }
+    T* dst = base + j * wr;
+    if (full) {
+#pragma unroll
+      for (int s = 0; s < SEG / V; ++s) {
+        reinterpret_cast<uint4*>(dst)[s] = pack16(v + s * V, T());
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < SEG; ++e) {
+        if (e < cells * R) put(dst + e, v[e]);
+      }
+    }
+  }
+}
+
+template <int R, typename T>
+int launch(const float* plane_eq, void* out, int B, int H, int W, float inv_scale,
+           cudaStream_t stream) {
+  constexpr int CPT = cells_per_thread<R, T>();
+  const int64_t rows = static_cast<int64_t>(B) * H;
+  const int64_t groups = (W + CPT - 1) / CPT;
+  const int threads = static_cast<int>(groups >= 256 ? 256 : (groups + 31) / 32 * 32);
+  const int64_t col_blocks = (groups + threads - 1) / threads;
+  if (rows > 0x7fffffffLL || col_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte stores need every row and every segment 16-byte aligned.
+  const bool vec = (static_cast<int64_t>(W) * R * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid(static_cast<unsigned int>(rows), static_cast<unsigned int>(col_blocks));
+  lpg_kernel<R, T><<<grid, threads, 0, stream>>>(reinterpret_cast<const float4*>(plane_eq),
+                                                  static_cast<T*>(out), W, inv_scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const float* plane_eq, void* out, int B, int H, int W, int r, float inv_scale,
+             cudaStream_t stream) {
+  switch (r) {
+    case 2: return launch<2, T>(plane_eq, out, B, H, W, inv_scale, stream);
+    case 4: return launch<4, T>(plane_eq, out, B, H, W, inv_scale, stream);
+    case 8: return launch<8, T>(plane_eq, out, B, H, W, inv_scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // plane_eq: (B, H, W, 4) f32, contiguous, 16-byte aligned. out: (B, H*r, W*r)
-// f32, contiguous. Launches on `stream` and returns cudaGetLastError().
-extern "C" int lpg_forward_f32(const float* plane_eq, float* out, int B, int H,
-                               int W, int r, void* stream) {
-  const int64_t rows = static_cast<int64_t>(B) * H * r;
-  const int64_t wr = static_cast<int64_t>(W) * r;
-  if (rows <= 0 || wr <= 0) return static_cast<int>(cudaSuccess);
-  const int64_t col_blocks = (wr + kThreads - 1) / kThreads;
-  if (rows > 0x7fffffffLL || col_blocks > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned int>(rows), static_cast<unsigned int>(col_blocks));
-  lpg_forward_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(plane_eq), out, H, W, r);
-  return static_cast<int>(cudaGetLastError());
+// contiguous, f32 (out_bf16 == 0) or bf16. r is 2, 4 or 8. Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for what it
+// cannot take).
+extern "C" int lpg_forward(const float* plane_eq, void* out, int B, int H, int W, int r,
+                           float inv_scale, int out_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_bf16 ? dispatch<bf16>(plane_eq, out, B, H, W, r, inv_scale, s)
+                  : dispatch<float>(plane_eq, out, B, H, W, r, inv_scale, s);
 }

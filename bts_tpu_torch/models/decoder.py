@@ -164,10 +164,12 @@ class BTSDecoder(nn.Module):
         )
 
     def _lpg_scaled(self, plane_eq: torch.Tensor, r: int, dtype) -> torch.Tensor:
-        """Full-resolution LPG map / max_depth in the compute dtype, (B,1,H,W)."""
+        """Full-resolution LPG map / max_depth in the compute dtype, (B,1,H,W):
+        one kernel launch on a card, scale and cast included."""
         plane_eq = normalize_plane(plane_eq).contiguous()
-        depth = local_planar_guidance(plane_eq, r, impl=self.lpg_impl)
-        return (depth / self.max_depth).to(dtype).unsqueeze(1)
+        depth = local_planar_guidance(plane_eq, r, impl=self.lpg_impl,
+                                      max_depth=self.max_depth, out_dtype=dtype)
+        return depth.unsqueeze(1)
 
     def forward(
         self, features: Sequence[torch.Tensor], focal: torch.Tensor

@@ -78,8 +78,8 @@ class DenseLayer(nn.Module):
         """(s1, b1, w1, s2, b2, w2, w2q, kmajor) in ``dtype`` on the weights'
         device, for the fused layer: BN folded in f32, w1 (C, Cmid), w2
         (3,3,Cmid,G), w2q = pack_w2_eo(w2) (None unless ``eo``), kmajor =
-        pack_taps_kmajor(w1, w2) for the bf16 taps kernel (None for eo or
-        another dtype).
+        pack_taps_kmajor(w1, w2) for the taps kernel (None for eo): K-major
+        copies, in f32 split into their TF32 halves.
 
         Cached, keyed on every source tensor's storage and version, so
         load_state_dict, .to(), in-place changes to the BN statistics and a
@@ -101,8 +101,7 @@ class DenseLayer(nn.Module):
             w2 = c2.permute(2, 3, 1, 0)
             weights = [t.to(dtype).contiguous() for t in (s1, b1, w1, s2, b2, w2)]
             weights.append(pack_w2_eo(weights[5]) if eo else None)
-            bf16_taps = not eo and dtype == torch.bfloat16
-            weights.append(pack_taps_kmajor(weights[2], weights[5]) if bf16_taps else None)
+            weights.append(None if eo else pack_taps_kmajor(weights[2], weights[5]))
         self._folded = (key, tuple(weights))
         return self._folded[1]
 

@@ -4,8 +4,8 @@ The sources export plain C functions, so they compile without PyTorch's
 headers (seconds, not minutes). Each source compiles to an object in its own
 nvcc process, all started together; one more nvcc links them into a shared
 library in ``build/kernels/`` at the repository root, named by a hash of the
-sources and flags. It is built at first use in a process. Nothing is built at
-import.
+sources, the headers they share (``*.cuh``) and the flags. It is built at
+first use in a process. Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -31,6 +31,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     """nvcc under torch's CUDA_HOME, else on PATH; raises if neither."""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -51,7 +55,7 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libbts_kernels_{digest.hexdigest()[:16]}.so"
@@ -105,8 +109,9 @@ def load_library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.lpg_forward_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.lpg_forward_f32.restype = i32
+        # plane_eq, out, B, H, W, r, inv_scale, out_bf16, stream
+        lib.lpg_forward.argtypes = [ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+        lib.lpg_forward.restype = i32
         strided = [ptr, i64, i64, i64]  # a map's pointer and its (b, h, w) strides
         params = [ptr] * 6  # s1, b1, w1, s2, b2, w2 (eo: w2q)
         sizes = [i32] * 6  # B, H, W (eo: U), C, Cmid, G

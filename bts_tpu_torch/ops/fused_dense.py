@@ -60,11 +60,30 @@ def pack_w2_eo(w2: torch.Tensor) -> torch.Tensor:
     return w2q
 
 
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits; the 13 low bits zero) to
+    nearest, ties away from zero: PTX's ``cvt.rna.tf32.f32``."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor):
+    """(big, small) with big = tf32(a) and small = tf32(a - big): the two
+    TF32 halves of an f32 operand for the 3xTF32 products (big*big +
+    big*small + small*big) of the f32 taps kernel."""
+    big = tf32_round(a)
+    return big, tf32_round(a - big)
+
+
 def pack_taps_kmajor(w1: torch.Tensor, w2: torch.Tensor):
-    """(w1t, w2t): the two kernels with K contiguous, as the bf16 taps kernel
-    reads its wgmma B operands: w1 (C, Cmid) -> (Cmid, C), w2 (3, 3, Cmid, G)
-    -> (3, 3, G, Cmid)."""
-    return w1.t().contiguous(), w2.permute(0, 1, 3, 2).contiguous()
+    """(w1t, w2t): the two kernels with K contiguous, as the taps kernels
+    read their wgmma B operands: w1 (C, Cmid) -> (Cmid, C), w2 (3, 3, Cmid, G)
+    -> (3, 3, G, Cmid). In f32 each is stacked as its ``tf32_split``:
+    (2, Cmid, C) and (2, 3, 3, G, Cmid), [0] big and [1] small."""
+    w1t, w2t = w1.t().contiguous(), w2.permute(0, 1, 3, 2).contiguous()
+    if w1.dtype == torch.float32:
+        return torch.stack(tf32_split(w1t)), torch.stack(tf32_split(w2t))
+    return w1t, w2t
 
 
 def _bottleneck(x, s1, b1, w1, s2, b2) -> torch.Tensor:
@@ -121,7 +140,7 @@ def fused_dense_layer(
     A CPU tensor takes the plain version; a CUDA tensor the kernel, which
     raises on what it cannot take. ``w2q`` is ``pack_w2_eo(w2)``, computed
     here when not given; ``kmajor`` is ``pack_taps_kmajor(w1, w2)`` for the
-    bf16 taps kernel, computed by it when not given. ``out`` (B,H,W,G), when
+    taps kernel, computed by it when not given. ``out`` (B,H,W,G), when
     given, receives the result (the kernel writes it in place: it may be a
     channel slice of a larger NHWC buffer) and is returned.
     """

@@ -1,8 +1,9 @@
 """Wrappers of the hand-written CUDA fused dense layers.
 
 The CUDA port of ``docs/archive/fused_dense.py``'s ``fused_dense_layer``
-(taps: ``csrc/fused_dense_taps_sm90.cu`` in bf16, ``csrc/fused_dense.cu``
-in f32) and ``fused_dense_layer_eo`` (eo: ``csrc/fused_dense.cu``). Each
+(taps: ``csrc/fused_dense_taps_sm90.cu`` in bf16,
+``csrc/fused_dense_taps_f32_sm90.cu`` in f32, both TMA + ``wgmma``) and
+``fused_dense_layer_eo`` (eo: ``csrc/fused_dense.cu``, f32 and bf16). Each
 wrapper checks its inputs,
 allocates the output with ``torch.empty`` unless it is given one, and
 launches on the current stream without synchronising. It never falls back
@@ -26,17 +27,18 @@ from bts_tpu_torch.ops.fused_dense import pack_taps_kmajor
 TAPS_LAUNCHES = 0
 EO_LAUNCHES = 0
 
-# The kernel's limits (csrc/fused_dense.cu): shared memory holds a tile of the
-# bottleneck at most 192 channels wide, taken in steps of 32.
+# The eo kernel's limits (csrc/fused_dense.cu): shared memory holds a tile of
+# the bottleneck at most 192 channels wide, taken in steps of 32.
 MAX_CMID = 192
 MAX_G = 64
-# The bf16 taps kernel (csrc/fused_dense_taps_sm90.cu) is built for the
-# (Cmid, G) of DenseNet161 and DenseNet121.
-TAPS_BF16_SHAPES = ((192, 48), (128, 32))
+# The taps kernels (csrc/fused_dense_taps_sm90.cu, bf16;
+# csrc/fused_dense_taps_f32_sm90.cu, f32) are built for the (Cmid, G) of
+# DenseNet161 and DenseNet121.
+TAPS_SHAPES = ((192, 48), (128, 32))
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _check_map(name, t, dt, device, vec, aligned=True):
+def _check_map(name, t, dt, device, vec):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
     if t.dtype != dt:
@@ -44,7 +46,7 @@ def _check_map(name, t, dt, device, vec, aligned=True):
     if t.dim() != 4 or t.stride(3) != 1:
         raise ValueError(f"{name} must be 4-D with contiguous channels "
                          f"(shape {tuple(t.shape)}, strides {t.stride()})")
-    if aligned and (any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16):
+    if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{name}: pixel strides must be multiples of {vec} elements and the "
                          f"data 16-byte aligned (16-byte loads); strides {t.stride()}")
 
@@ -94,9 +96,10 @@ def fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out: Optional[torch.Tensor] = No
                      kmajor=None):
     """CUDA taps layer. x (B,H,W,C) f32/bf16 -> (B,H,W,G); parameters in
     x.dtype: s1, b1 (C,), w1 (C,Cmid), s2, b2 (Cmid,), w2 (3,3,Cmid,G).
-    bf16 reads the kernels K-major: ``kmajor`` = ``pack_taps_kmajor(w1, w2)``
-    (packed here when not given) and writes 16-byte vectors, so ``out``
-    must be 16-byte aligned with pixel strides in multiples of 8."""
+    The kernels read w1 and w2 K-major (f32: split into TF32 halves):
+    ``kmajor`` = ``pack_taps_kmajor(w1, w2)``, packed here when not given.
+    They write 16-byte vectors, so ``out`` must be 16-byte aligned with pixel
+    strides in multiples of 16 bytes."""
     global TAPS_LAUNCHES
     dt, vec, c, cmid, g = _common(x, s1, b1, w1, s2, b2, w2, eo=False)
     b, h, w, _ = x.shape
@@ -105,16 +108,15 @@ def fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out: Optional[torch.Tensor] = No
         out = torch.empty((b, h, w, g), dtype=dt, device=x.device)
     elif tuple(out.shape) != (b, h, w, g):
         raise ValueError(f"out has shape {tuple(out.shape)}, expected {(b, h, w, g)}")
-    bf16 = dt == torch.bfloat16
-    _check_map("out", out, dt, x.device, vec, aligned=bf16)
-    if bf16:
-        if (cmid, g) not in TAPS_BF16_SHAPES:
-            raise ValueError(f"the bf16 taps kernel takes (Cmid, G) in {TAPS_BF16_SHAPES} "
-                             f"(got {(cmid, g)})")
-        if kmajor is None:
-            kmajor = pack_taps_kmajor(w1, w2)
-        w1, w2 = kmajor
-        _check_params(dt, x.device, {"w1t": (cmid, c), "w2t": (3, 3, g, cmid)}, w1t=w1, w2t=w2)
+    _check_map("out", out, dt, x.device, vec)
+    if (cmid, g) not in TAPS_SHAPES:
+        raise ValueError(f"the taps kernel takes (Cmid, G) in {TAPS_SHAPES} (got {(cmid, g)})")
+    if kmajor is None:
+        kmajor = pack_taps_kmajor(w1, w2)
+    w1, w2 = kmajor
+    split = (2,) if dt == torch.float32 else ()
+    _check_params(dt, x.device, {"w1t": (*split, cmid, c), "w2t": (*split, 3, 3, g, cmid)},
+                  w1t=w1, w2t=w2)
     if out.numel() == 0:
         return out
     _run(f"fused_dense_taps_{_SUFFIX[dt]}", x, *x.stride()[:3], s1, b1, w1, s2, b2, w2,

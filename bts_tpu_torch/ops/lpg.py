@@ -17,6 +17,10 @@ VJP (the n4 factor included):
     d n3 = -sum_{tile} g * n4 / den^2
     d n4 =  sum_{tile} g / den
 
+The decoder scales each full-resolution map by 1/max_depth and casts it to
+its compute dtype; ``local_planar_guidance(..., max_depth, out_dtype)`` does
+both in the same pass (``lpg_scaled_reference`` is the plain composition).
+
 Implementations (``impl``, ``bts_tpu``'s names so args files carry over):
   - ``auto`` / ``pallas``: the CUDA kernel (``ops/lpg_cuda.py``) on a CUDA
     tensor, the plain version on a CPU tensor;
@@ -27,6 +31,7 @@ Implementations (``impl``, ``bts_tpu``'s names so args files carry over):
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -59,6 +64,13 @@ def lpg_reference(plane_eq: torch.Tensor, upratio: int) -> torch.Tensor:
     return (n4 / den).reshape(b, h * r, w * r)
 
 
+def lpg_scaled_reference(
+    plane_eq: torch.Tensor, upratio: int, max_depth: float, dtype: torch.dtype
+) -> torch.Tensor:
+    """Plain decoder site: (lpg(plane_eq, r) / max_depth).to(dtype)."""
+    return (lpg_reference(plane_eq, upratio) / max_depth).to(dtype)
+
+
 def lpg_backward(plane_eq: torch.Tensor, grad: torch.Tensor, upratio: int) -> torch.Tensor:
     """Analytic gradient w.r.t. plane_eq (``bts_tpu.ops.lpg._lpg_bwd``)."""
     r = upratio
@@ -76,23 +88,30 @@ def lpg_backward(plane_eq: torch.Tensor, grad: torch.Tensor, upratio: int) -> to
 
 
 class _LocalPlanarGuidance(torch.autograd.Function):
-    """Forward by the kernel or the plain version; analytic plain backward
-    (as the Pallas VJP reuses bts_tpu's XLA backward)."""
+    """Forward by the kernel or the plain version, scaled by 1/max_depth
+    (unless None) and cast to out_dtype; analytic plain backward (as the
+    Pallas VJP reuses bts_tpu's XLA backward), through the cast and the
+    scale as autograd takes them."""
 
     @staticmethod
-    def forward(ctx, plane_eq, upratio, use_kernel):
-        ctx.upratio = upratio
+    def forward(ctx, plane_eq, upratio, use_kernel, max_depth, out_dtype):
+        ctx.upratio, ctx.max_depth = upratio, max_depth
         ctx.save_for_backward(plane_eq)
         if use_kernel:
             from bts_tpu_torch.ops.lpg_cuda import lpg_cuda
 
-            return lpg_cuda(plane_eq, upratio)
-        return lpg_reference(plane_eq, upratio)
+            return lpg_cuda(plane_eq, upratio, max_depth, out_dtype)
+        if max_depth is None:
+            return lpg_reference(plane_eq, upratio).to(out_dtype)
+        return lpg_scaled_reference(plane_eq, upratio, max_depth, out_dtype)
 
     @staticmethod
     def backward(ctx, grad):
         (plane_eq,) = ctx.saved_tensors
-        return lpg_backward(plane_eq, grad, ctx.upratio), None, None
+        grad = grad.to(plane_eq.dtype)
+        if ctx.max_depth is not None:
+            grad = grad / ctx.max_depth
+        return lpg_backward(plane_eq, grad, ctx.upratio), None, None, None, None
 
 
 def check_impl(impl: str) -> None:
@@ -107,9 +126,15 @@ def check_impl(impl: str) -> None:
 
 
 def local_planar_guidance(
-    plane_eq: torch.Tensor, upratio: int, impl: str = "auto"
+    plane_eq: torch.Tensor,
+    upratio: int,
+    impl: str = "auto",
+    max_depth: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """LPG dispatch. plane_eq (B,H,W,4) -> depth (B, H*r, W*r).
+    """LPG dispatch. plane_eq (B,H,W,4) -> depth (B, H*r, W*r), divided by
+    ``max_depth`` unless it is None, in ``out_dtype`` (plane_eq's dtype when
+    None): one pass for ``lpg_scaled_reference``'s composition.
 
     ``auto``/``pallas`` take the CUDA kernel for any tensor not on the CPU
     (the kernel's wrapper raises for a device it cannot launch on); there is
@@ -117,7 +142,8 @@ def local_planar_guidance(
     """
     check_impl(impl)
     use_kernel = impl != "xla" and plane_eq.device.type != "cpu"
-    return _LocalPlanarGuidance.apply(plane_eq, upratio, use_kernel)
+    out_dtype = plane_eq.dtype if out_dtype is None else out_dtype
+    return _LocalPlanarGuidance.apply(plane_eq, upratio, use_kernel, max_depth, out_dtype)
 
 
 def normalize_plane(plane: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

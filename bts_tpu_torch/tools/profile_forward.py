@@ -1,8 +1,10 @@
 """Where a forward's time goes on the card: ``python -m bts_tpu_torch.tools.profile_forward``.
 
 DenseNet161-BTS NYU at full width (``bts_size`` 512), 480x640, seeded
-weights, bf16 autocast under ``inference_mode``; at each batch the dense
-layers run in turns plain, auto (the taps kernel), auto, plain. For each
+weights, under ``inference_mode`` in ``--dtype`` bfloat16 (autocast, the
+default) or float32 (``cli.test``'s default dtype; TF32 off in cuDNN and
+cuBLAS, so the plain convs are f32 too); at each batch the dense layers run
+in turns plain, auto (the taps kernel), auto, plain. For each
 run: ``torch.profiler`` over 3 forwards gives the kernels per forward, the
 device time per forward and its split by kind of kernel; the wall time per
 forward comes from 10 forwards without the profiler, host clock around work
@@ -24,8 +26,8 @@ import torch
 
 # Kinds of kernel, by the first pattern found in the lower-cased name.
 KINDS = (
-    ("fused dense", ("taps_sm90", "fused_dense")),
-    ("lpg", ("lpg_forward",)),
+    ("fused dense", ("taps_sm90", "taps_f32", "fused_dense")),
+    ("lpg", ("lpg_",)),
     ("cat", ("catarray", "cat_")),
     ("bn", ("batch_norm", "batchnorm", "bn_")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90_")),
@@ -43,9 +45,9 @@ def kind(name: str) -> str:
     return "other"
 
 
-def profile_run(model, x, focal, dense_impl, forwards=3, timed=10):
+def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
     model.encoder.dense_impl = dense_impl
-    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
         for _ in range(3):
             model(x, focal)
         torch.cuda.synchronize()
@@ -71,7 +73,8 @@ def profile_run(model, x, focal, dense_impl, forwards=3, timed=10):
         by_kind[k] = by_kind.get(k, 0.0) + us / 1e3 / forwards
     device_ms = device_us / 1e3 / forwards
     return {
-        "batch": x.shape[0], "dense_impl": dense_impl, "kernels": kernels // forwards,
+        "batch": x.shape[0], "dtype": "bfloat16" if bf16 else "float32",
+        "dense_impl": dense_impl, "kernels": kernels // forwards,
         "device_ms": device_ms, "wall_ms": wall_ms, "idle": 1.0 - device_ms / wall_ms,
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
     }
@@ -80,10 +83,15 @@ def profile_run(model, x, focal, dense_impl, forwards=3, timed=10):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, nargs="+", default=[8, 1])
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     parser.add_argument("--out", default=os.path.join("build", "profile_forward.json"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
+    bf16 = args.dtype == "bfloat16"
+    if not bf16:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     from bts_tpu_torch.config import Config
     from bts_tpu_torch.models.bts import create_model
 
@@ -98,7 +106,7 @@ def main(argv=None):
         x = torch.randn(b, 3, 480, 640, generator=gen).cuda()
         focal = torch.full((b,), 518.8579, device="cuda")
         for dense_impl in ("plain", "auto", "auto", "plain"):
-            run = profile_run(model, x, focal, dense_impl)
+            run = profile_run(model, x, focal, dense_impl, bf16)
             run["device"] = smi
             runs.append(run)
             print(json.dumps(run), flush=True)

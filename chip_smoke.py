@@ -8,15 +8,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    source, all started together, then one link);
 3. kernels against plain (TF32 off), each timed by CUDA events (device time
    per call) beside its plain PyTorch version:
-   - LPG at the three NYU 480x640 sites (batch 8) and a ragged case, rtol
-     1e-6, atol 0;
+   - LPG at the three NYU 480x640 sites (batch 8) and ragged cases at r = 2,
+     4 and 8, bit for bit: the bare map in f32, and the decoder's site
+     (``/ max_depth`` and the cast fused) in f32 and bf16 against
+     ``lpg_scaled_reference``; the site's unfused form (the bare kernel, then
+     PyTorch's division and cast) is timed beside it;
    - the fused dense layer, taps and eo, in bf16 and f32, at the first and
-     the last layer of each DenseNet161 block at 480x640, batch 8, against
-     the plain fused versions (the same rounding points): bf16 rtol 2e-2,
-     atol 2e-2 (one bf16 ulp of an output, about 2^-8 relative, may flip
-     with the summation order), f32 rtol 1e-4, atol 1e-4. The unfused
-     cuDNN chain of the layer (what ``dense_impl='plain'`` runs: BN, ReLU,
-     1x1, BN, ReLU, 3x3 and the concat) is timed beside them;
+     the last layer of each DenseNet161 block at 480x640, batch 8 (taps at
+     batch 1 too), against the plain fused versions (the same rounding
+     points): bf16 rtol 2e-2, atol 2e-2 (one bf16 ulp of an output, about
+     2^-8 relative, may flip with the summation order), f32 rtol 1e-4, atol
+     1e-4 (f32 taps runs 3xTF32 products). The unfused cuDNN chain of the
+     layer (what ``dense_impl='plain'`` runs: BN, ReLU, 1x1, BN, ReLU, 3x3
+     and the concat) is timed beside them;
 4. the port on the card against the port on the CPU in f32: DenseNet161-BTS
    at full width, seeded weights, 1x3x96x128, all 5 outputs at rtol 1e-3,
    atol 1e-4 (cuDNN sums in another order), with ``dense_impl`` auto (taps
@@ -30,12 +34,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    dense_impl auto and for eo (the eo path: its launch counts reset just
    before, 78 eo launches); then the forward's img/s in bf16 at batch 1 and
    8, in turns, with the dense layers plain, through the taps kernel and
-   through the eo kernel, and with the plain LPG (xla).
+   through the eo kernel, and with the plain LPG (xla); and in f32 (TF32
+   off, as phase 3 set it) at batch 8 with the dense layers plain and auto.
 
 The line before the last is the kernels' JSON record (``launches`` from the
-serving path of phase 5 for LPG and taps, from the eo forward of phase 6 for
-eo; ``ms``/``plain_ms`` summed over the phase-3 shapes, bf16 for the dense
-layers); the last line is ``{"ok": true, "device": {...}}``.
+serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forward for
+f32 taps, from the eo forward of phase 6 for eo; ``ms``/``plain_ms`` summed
+over the phase-3 shapes or sites, in the record's dtype); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -53,14 +59,18 @@ from PIL import Image
 NYU_SITES = [(8, 60, 80), (4, 120, 160), (2, 240, 320)]  # (r, grid h, grid w)
 LPG_SOURCE = "bts_tpu_torch/csrc/lpg.cu"
 LPG_REPLACES = "bts_tpu/ops/lpg_pallas.py:38"
-DENSE_SOURCE = {"taps": "bts_tpu_torch/csrc/fused_dense_taps_sm90.cu",
-                "eo": "bts_tpu_torch/csrc/fused_dense.cu"}
+MAX_DEPTH = 10.0  # NYU
+DENSE_SOURCE = {("taps", "bfloat16"): "bts_tpu_torch/csrc/fused_dense_taps_sm90.cu",
+                ("taps", "float32"): "bts_tpu_torch/csrc/fused_dense_taps_f32_sm90.cu",
+                ("eo", "bfloat16"): "bts_tpu_torch/csrc/fused_dense.cu"}
 DENSE_REPLACES = {"taps": "docs/archive/fused_dense.py:167", "eo": "docs/archive/fused_dense.py:216"}
 DENSE_LAYERS = 78  # DenseNet161: 6 + 12 + 36 + 24
 DENSE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-4, atol=1e-4)}
-# One H100 SXM's published peaks (dense): bf16 tensor cores, f32 outside
-# them, and HBM3. The bounds below divide this run's work by them.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# One H100 SXM's published peaks (dense): bf16 tensor cores; f32-accurate
+# products as 3xTF32 on the tensor cores, three TF32 products (494.7 TFLOP/s)
+# for each f32 one (with FMAs outside the tensor cores f32 peaks at 67
+# TFLOP/s); and HBM3. The bounds below divide this run's work by them.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -103,11 +113,12 @@ def bound_ms(flops, nbytes, dtype_name):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def lpg_bound(b, h, w, r):
-    """LPG at one site: the (B,h,w,4) f32 planes read once, the
-    (B,h*r,w*r) f32 map written once; per output 2 mul, 2 add, 1 div."""
+def lpg_bound(b, h, w, r, out_esize=4):
+    """LPG at one site: the (B,h,w,4) f32 planes read once, the (B,h*r,w*r)
+    map written once in the output dtype (``out_esize`` bytes); per output 2
+    mul, 2 add, 1 div and the scale."""
     outputs = b * h * r * w * r
-    return bound_ms(5 * outputs, 4 * (b * h * w * 4 + outputs), "float32")
+    return bound_ms(6 * outputs, 16 * b * h * w + out_esize * outputs, "float32")
 
 
 def dense_work(b, h, w, c, cmid=192, g=48, esize=2):
@@ -118,35 +129,52 @@ def dense_work(b, h, w, c, cmid=192, g=48, esize=2):
     return flops, nbytes
 
 
-def check_kernel_against_plain(torch, lpg_cuda, lpg):
-    """Phase 3. Returns (max abs err, kernel ms, plain ms, bound ms, bound
-    by) summed over the three NYU sites at batch 8 (one forward's worth of
-    LPG)."""
+def check_lpg(torch, lpg_cuda, lpg):
+    """Phase 3, LPG. Each case once against its plain version, bit for bit:
+    the bare map (f32) and the decoder's site (``/ MAX_DEPTH``, cast) in f32
+    and bf16; then, at the NYU sites, each timed. Returns {key: [max abs err,
+    kernel ms, plain ms, bound ms, unfused ms]} summed over the three NYU
+    sites at batch 8 (one forward's worth), for keys "bare" (f32) and the
+    site's output dtype names; "unfused" is the bare kernel followed by
+    PyTorch's division and cast, the site as the decoder ran it before."""
     gen = torch.Generator().manual_seed(0)
-    cases = [(r, 8, h, w) for r, h, w in NYU_SITES] + [(8, 3, 5, 7)]
-    max_err, kernel_ms, plain_ms, bound = 0.0, 0.0, 0.0, 0.0
+    cases = [(r, 8, h, w) for r, h, w in NYU_SITES] + [(r, 3, 5, 7) for r in (8, 4, 2)]
+    res = {}
     for i, (r, b, h, w) in enumerate(cases):
         logits = torch.randn(b, h, w, 3, generator=gen).cuda()
-        pe = lpg.normalize_plane(lpg.decode_plane_eq(logits, 10.0)).contiguous()
-        before = lpg_cuda.LAUNCHES
-        got = lpg_cuda.lpg_cuda(pe, r)
-        torch.cuda.synchronize()
-        if lpg_cuda.LAUNCHES != before + 1:
-            raise RuntimeError("lpg_cuda did not count its launch")
-        want = lpg.lpg_reference(pe, r)
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-        finite = torch.isfinite(want)
-        err = (got - want)[finite].abs().max().item()
-        max_err = max(max_err, err)
-        k = cuda_median_ms(lambda: lpg_cuda.lpg_cuda(pe, r))
-        p = cuda_median_ms(lambda: lpg.lpg_reference(pe, r))
-        print(f"lpg r={r} B={b} grid {h}x{w} -> {h * r}x{w * r}: max_abs_err {err!r}, "
-              f"kernel {k!r} ms, plain {p!r} ms (median of 50 samples of 10 calls)")
-        if i < len(NYU_SITES):
-            kernel_ms += k
-            plain_ms += p
-            bound += lpg_bound(b, h, w, r)[0]
-    return max_err, kernel_ms, plain_ms, bound, "bytes"
+        pe = lpg.normalize_plane(lpg.decode_plane_eq(logits, MAX_DEPTH)).contiguous()
+        runs = {"bare": (lambda: lpg_cuda.lpg_cuda(pe, r), lambda: lpg.lpg_reference(pe, r),
+                         None, 4)}
+        for dt in (torch.float32, torch.bfloat16):
+            runs[str(dt).removeprefix("torch.")] = (
+                lambda dt=dt: lpg_cuda.lpg_cuda(pe, r, MAX_DEPTH, dt),
+                lambda dt=dt: lpg.lpg_scaled_reference(pe, r, MAX_DEPTH, dt),
+                lambda dt=dt: (lpg_cuda.lpg_cuda(pe, r) / MAX_DEPTH).to(dt),
+                dt.itemsize)
+        for key, (kernel, plain, unfused, esize) in runs.items():
+            before = lpg_cuda.LAUNCHES
+            got = kernel()
+            torch.cuda.synchronize()
+            if lpg_cuda.LAUNCHES != before + 1:
+                raise RuntimeError("lpg_cuda did not count its launch")
+            want = plain()
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+            finite = torch.isfinite(want)
+            err = (got.float() - want.float())[finite].abs().max().item()
+            if i >= len(NYU_SITES):
+                print(f"lpg {key} r={r} B={b} grid {h}x{w}: bit-equal to the plain version")
+                continue
+            k = cuda_median_ms(kernel)
+            p = cuda_median_ms(plain)
+            u = cuda_median_ms(unfused) if unfused else None
+            bound = lpg_bound(b, h, w, r, esize)[0]
+            print(f"lpg {key} r={r} B={b} grid {h}x{w} -> {h * r}x{w * r}: bit-equal, max_abs_err "
+                  f"{err!r}, kernel {k!r} ms, plain {p!r} ms, unfused {u!r} ms (median of 50 "
+                  f"samples of 10 calls); bound {bound * 1e3!r} us by bytes, {bound / k:.2%} of it")
+            acc = res.setdefault(key, [0.0, 0.0, 0.0, 0.0, 0.0 if unfused else None])
+            res[key] = [max(acc[0], err), acc[1] + k, acc[2] + p, acc[3] + bound,
+                        acc[4] + u if unfused else None]
+    return res
 
 
 def densenet161_layer_shapes(h=480, w=640):
@@ -181,14 +209,15 @@ def check_dense_kernels(torch, fd, fdc, DenseLayer):
     """Phase 3, the fused dense layer. Returns {impl: {dtype name: [max abs
     err, kernel ms, plain ms, bound ms, flops, bytes]}} summed over the
     shapes at B=8, {dtype name: ms} of the unfused cuDNN chain, also summed,
-    and the bf16 taps kernel's sums at B=1 {max_abs_err, ms, plain_ms,
-    cudnn_chain_ms, bound_ms}."""
+    and the taps kernel's sums at B=1 {dtype name: {max_abs_err, ms,
+    plain_ms, cudnn_chain_ms, bound_ms}}."""
     gen = torch.Generator().manual_seed(3)
     launch = {"taps": fdc.fused_dense_cuda, "eo": fdc.fused_dense_eo_cuda}
     plain = {"taps": fd.fused_dense_reference, "eo": fd.fused_dense_eo_reference}
     res = {impl: {} for impl in launch}
     chain_ms = {}
-    live = dict.fromkeys(("max_abs_err", "ms", "plain_ms", "cudnn_chain_ms", "bound_ms"), 0.0)
+    live = {name: dict.fromkeys(("max_abs_err", "ms", "plain_ms", "cudnn_chain_ms", "bound_ms"),
+                                0.0) for name in DENSE_TOL}
 
     def run(impl, name, args, kmajor, b, h, w, c):
         """One synchronised launch against the plain version, then both timed."""
@@ -237,16 +266,19 @@ def check_dense_kernels(torch, fd, fdc, DenseLayer):
                 res[impl][name] = [max(acc[0], err), acc[1] + k, acc[2] + p, acc[3] + bound,
                                    acc[4] + work[0], acc[5] + work[1]]
             chain_ms[name] = chain_ms.get(name, 0.0) + chain(layer, x, name, 8, h, w, c)
-        # B=1, the live path, where the grid is smallest: the bf16 taps kernel.
-        x1 = x32[:1].to(torch.bfloat16)
-        s1, b1, w1, s2, b2, w2, _, kmajor = layer.folded(torch.bfloat16, False)
-        err, k, p, bound, _ = run("taps", "bfloat16", (x1, s1, b1, w1, s2, b2, w2), kmajor,
-                                  1, h, w, c)
-        live["max_abs_err"] = max(live["max_abs_err"], err)
-        live["ms"] += k
-        live["plain_ms"] += p
-        live["bound_ms"] += bound
-        live["cudnn_chain_ms"] += chain(layer, x1, "bfloat16", 1, h, w, c)
+        # B=1, the live path, where the grid is smallest: the taps kernels.
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).removeprefix("torch.")
+            x1 = x32[:1].to(dt)
+            s1, b1, w1, s2, b2, w2, _, kmajor = layer.folded(dt, False)
+            err, k, p, bound, _ = run("taps", name, (x1, s1, b1, w1, s2, b2, w2), kmajor,
+                                      1, h, w, c)
+            lv = live[name]
+            lv["max_abs_err"] = max(lv["max_abs_err"], err)
+            lv["ms"] += k
+            lv["plain_ms"] += p
+            lv["bound_ms"] += bound
+            lv["cudnn_chain_ms"] += chain(layer, x1, name, 1, h, w, c)
     return res, chain_ms, live
 
 
@@ -267,13 +299,14 @@ def write_nyu_frames(root, n=8, h=480, w=640):
     return manifest
 
 
-def throughput(torch, model, batch, dense_impl, lpg_impl, iters=20):
-    """Forward img/s in bf16 at this batch, CUDA events around iters runs."""
+def throughput(torch, model, batch, dense_impl, lpg_impl, iters=20, bf16=True):
+    """Forward img/s at this batch, in bf16 autocast (or f32), CUDA events
+    around iters runs."""
     model.encoder.dense_impl = dense_impl
     model.decoder.lpg_impl = lpg_impl
     x = torch.randn(batch, 3, 480, 640, device="cuda")
     focal = torch.full((batch,), 518.8579, device="cuda")
-    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
         for _ in range(3):
             model(x, focal)
         torch.cuda.synchronize()
@@ -330,18 +363,21 @@ def main():
     phase("3 kernels against plain")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    lpg_res = check_kernel_against_plain(torch, lpg_cuda, lpg)
-    print(f"three NYU sites at B=8: kernel {lpg_res[1]!r} ms, plain {lpg_res[2]!r} ms, "
-          f"bound {lpg_res[3]!r} ms by bytes")
+    lpg_res = check_lpg(torch, lpg_cuda, lpg)
+    for key, (err, k, p, bound, u) in lpg_res.items():
+        print(f"lpg {key}, three NYU sites at B=8: kernel {k!r} ms, plain {p!r} ms, unfused "
+              f"{u!r} ms, bound {bound!r} ms by bytes ({bound / k:.2%}), max_abs_err {err!r}")
     dense, chain_ms, live = check_dense_kernels(torch, fused_dense, fused_dense_cuda, DenseLayer)
     for impl, by_dt in dense.items():
         for name, (err, k, p, bound, _, _) in by_dt.items():
             print(f"dense {impl} {name}, 8 shapes summed at B=8: kernel {k!r} ms, plain {p!r} ms, "
                   f"cuDNN chain {chain_ms[name]!r} ms, bound {bound!r} ms ({bound / k:.2%}), "
                   f"max_abs_err {err!r}")
-    print(f"dense taps bfloat16, 8 shapes summed at B=1: kernel {live['ms']!r} ms, plain "
-          f"{live['plain_ms']!r} ms, cuDNN chain {live['cudnn_chain_ms']!r} ms, bound "
-          f"{live['bound_ms']!r} ms, max_abs_err {live['max_abs_err']!r}")
+    for name, lv in live.items():
+        print(f"dense taps {name}, 8 shapes summed at B=1: kernel {lv['ms']!r} ms, plain "
+              f"{lv['plain_ms']!r} ms, cuDNN chain {lv['cudnn_chain_ms']!r} ms, bound "
+              f"{lv['bound_ms']!r} ms ({lv['bound_ms'] / lv['ms']:.2%}), max_abs_err "
+              f"{lv['max_abs_err']!r}")
 
     phase("4 port on the card against the port on the CPU, f32")
     cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512)
@@ -357,7 +393,9 @@ def main():
         with torch.inference_mode():
             got = gpu_model(x.cuda(), focal.cuda())
             torch.cuda.synchronize()
-        check_counts(f"f32 forward, dense_impl {dense_impl}", 1, kernel)
+        counts = check_counts(f"f32 forward, dense_impl {dense_impl}", 1, kernel)
+        if dense_impl == "auto":
+            f32_path = counts
         for name, g, w in zip(["lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth"], got, want,
                               strict=True):
             torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-4)
@@ -437,6 +475,14 @@ def main():
             rate = statistics.mean(r for j, r in runs if j == i)
             print(f"forward bf16 480x640 batch {b}: dense_impl {i[0]}, lpg_impl {i[1]}: "
                   f"{rate!r} img/s ({smi})")
+    # f32, cli.test's default dtype (TF32 off, as phase 3 set it).
+    impls = [("plain", "auto"), ("auto", "auto")]
+    runs = [(i, throughput(torch, model, 8, *i, iters=10, bf16=False))
+            for i in impls + impls[::-1]]
+    print(f"f32 batch 8 runs in turn: {runs!r}")
+    for i in impls:
+        rate = statistics.mean(r for j, r in runs if j == i)
+        print(f"forward f32 480x640 batch 8: dense_impl {i[0]}: {rate!r} img/s ({smi})")
 
     if "jax" in sys.modules or "flax" in sys.modules:
         raise RuntimeError("jax was imported")
@@ -446,26 +492,34 @@ def main():
     print(smi)
     # No single PyTorch call computes either function (library_ms null); the
     # dense layers' yardstick is the unfused cuDNN chain, cudnn_chain_ms.
-    err, ms, plain_ms, bound, bound_by = lpg_res
-    print(json.dumps({"kernels": [{
-        "name": "lpg_forward_f32", "route": "cuda", "source": LPG_SOURCE,
-        "replaces": LPG_REPLACES, "launches": serving["lpg"],
-        "launches_per_forward": serving["lpg"] // forwards, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None,
-    }] + [{
-        "name": f"fused_dense_{impl}_bf16", "route": "cuda", "source": DENSE_SOURCE[impl],
-        "replaces": DENSE_REPLACES[impl], "launches": launches[impl],
-        "launches_per_forward": launches[impl] // n_fwd,
-        "max_abs_err": dense[impl]["bfloat16"][0], "ms": dense[impl]["bfloat16"][1],
-        "plain_ms": dense[impl]["bfloat16"][2], "bound_ms": dense[impl]["bfloat16"][3],
-        "bound_by": bound_ms(*dense[impl]["bfloat16"][4:], "bfloat16")[1],
-        "library_ms": None, "cudnn_chain_ms": chain_ms["bfloat16"],
-        **({"b1": live} if impl == "taps" else {}),
-        "f32": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"),
-                        dense[impl]["float32"][:4]),
-                    cudnn_chain_ms=chain_ms["float32"]),
-    } for impl, launches, n_fwd in (("taps", serving, forwards), ("eo", eo_path, 1))]}))
+    def lpg_record(key):
+        err, ms, plain_ms, bound, unfused = lpg_res[key]
+        rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+        return rec if unfused is None else {**rec, "unfused_ms": unfused}
+
+    def dense_record(impl, name, launches, n_fwd):
+        err, ms, plain_ms, bound, flops, nbytes = dense[impl][name]
+        return {
+            "name": f"fused_dense_{impl}_{ {'bfloat16': 'bf16', 'float32': 'f32'}[name]}",
+            "route": "cuda", "source": DENSE_SOURCE[impl, name],
+            "replaces": DENSE_REPLACES[impl], "launches": launches[impl],
+            "launches_per_forward": launches[impl] // n_fwd, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_ms(flops, nbytes, name)[1],
+            "library_ms": None, "cudnn_chain_ms": chain_ms[name],
+        }
+
+    print(json.dumps({"kernels": [
+        {"name": "lpg_forward", "route": "cuda", "source": LPG_SOURCE,
+         "replaces": LPG_REPLACES, "out_dtype": "bfloat16", "launches": serving["lpg"],
+         "launches_per_forward": serving["lpg"] // forwards, **lpg_record("bfloat16"),
+         "bound_by": "bytes", "library_ms": None,
+         "float32": lpg_record("float32"), "bare_float32": lpg_record("bare")},
+        {**dense_record("taps", "bfloat16", serving, forwards), "b1": live["bfloat16"]},
+        {**dense_record("taps", "float32", f32_path, 1), "b1": live["float32"]},
+        {**dense_record("eo", "bfloat16", eo_path, 1),
+         "f32": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"), dense["eo"]["float32"][:4]),
+                     cudnn_chain_ms=chain_ms["float32"])},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

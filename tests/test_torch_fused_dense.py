@@ -204,18 +204,85 @@ def test_weights_made_under_inference_mode_fold_each_call():
 @pytest.mark.parametrize("dtype,eo", [(torch.bfloat16, False), (torch.bfloat16, True),
                                       (torch.float32, False)])
 def test_folded_packs_kmajor_for_the_bf16_taps_kernel(dtype, eo):
-    """The bf16 taps kernel reads both kernels K-major: w1t is conv1's own
-    (Cmid, C) layout and w2t conv2's taps as (3, 3, G, Cmid)."""
+    """The taps kernels read both kernels K-major: w1t is conv1's own
+    (Cmid, C) layout and w2t conv2's taps as (3, 3, G, Cmid); in f32 each is
+    stacked as its TF32 halves (big, small)."""
     layer = _randomize(densenet.DenseLayer(40, 8), 3).eval()
     s1, b1, w1, s2, b2, w2, w2q, kmajor = layer.folded(dtype, eo)
-    if eo or dtype != torch.bfloat16:
+    if eo:
         assert kmajor is None
         return
     w1t, w2t = kmajor
     assert w1t.is_contiguous() and w2t.is_contiguous() and w1t.dtype == w2t.dtype == dtype
-    torch.testing.assert_close(w1t, layer.conv1.weight[:, :, 0, 0].to(dtype), rtol=0, atol=0)
-    torch.testing.assert_close(w2t, layer.conv2.weight.permute(2, 3, 0, 1).to(dtype),
-                               rtol=0, atol=0)
+    want1 = layer.conv1.weight[:, :, 0, 0].to(dtype)
+    want2 = layer.conv2.weight.permute(2, 3, 0, 1).to(dtype)
+    if dtype == torch.float32:
+        assert tuple(w1t.shape) == (2, 32, 40) and tuple(w2t.shape) == (2, 3, 3, 8, 32)
+        for got, want in ((w1t, want1), (w2t, want2)):
+            torch.testing.assert_close(got[0], fused_dense.tf32_round(want), rtol=0, atol=0)
+            torch.testing.assert_close(got[0] + got[1], want, rtol=2.0**-21, atol=0)
+    else:
+        torch.testing.assert_close(w1t, want1, rtol=0, atol=0)
+        torch.testing.assert_close(w2t, want2, rtol=0, atol=0)
     assert tuple(map(torch.Tensor.tolist, fused_dense.pack_taps_kmajor(w1, w2))) == (
         w1t.tolist(), w2t.tolist())
     assert layer.folded(dtype, eo)[7] is kmajor  # cached
+
+
+def test_tf32_split_halves(rng):
+    """big keeps 10 mantissa bits (its 13 low bits are zero), rounded to
+    nearest with ties away from zero, and big + small recovers the f32 value
+    to 2^-22 relative."""
+    a = (rng.normal(size=4096) * 10.0 ** rng.integers(-6, 6, size=4096)).astype(np.float32)
+    # Ties: low 13 bits exactly 0x1000, both signs.
+    ties = (np.array([0x3F801000, 0x3F803000, 0xBF801000], dtype=np.uint32)).view(np.float32)
+    a = np.concatenate([a, ties, np.float32([0.0, 1.0, -2.5])])
+    big, small = fused_dense.tf32_split(torch.from_numpy(a))
+    for half in (big, small):
+        assert not (half.numpy().view(np.uint32) & 0x1FFF).any()
+    bits = a.view(np.uint32)
+    mag = (bits & 0x7FFFFFFF).astype(np.uint64)
+    want = ((mag + 0x1000) & ~np.uint64(0x1FFF)).astype(np.uint32) | (bits & 0x80000000)
+    np.testing.assert_array_equal(big.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(big.numpy()[-6:-3].view(np.uint32),
+                                  np.array([0x3F802000, 0x3F804000, 0xBF802000], np.uint32))
+    err = np.abs((big.double() + small.double()).numpy() - a.astype(np.float64))
+    assert (err <= 2.0**-22 * np.abs(a)).all()
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 taps kernel forms it: three products of TF32 halves,
+    small.big + big.small + big.big, summed in f32."""
+    ab, as_ = fused_dense.tf32_split(a)
+    bb, bs = fused_dense.tf32_split(b)
+    return torch.matmul(as_, bb) + torch.matmul(ab, bs) + torch.matmul(ab, bb)
+
+
+def _taps_3xtf32(x, s1, b1, w1, s2, b2, w2, mm=_mm_3xtf32):
+    """The f32 taps kernel's arithmetic in plain PyTorch (for these tests
+    only): y, z and out at the reference's rounding points, both products
+    through ``mm``."""
+    _, h, w, _ = x.shape
+    y = torch.relu(x * s1 + b1)
+    z = torch.nn.functional.pad(torch.relu(mm(y, w1) * s2 + b2), (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dh in range(3):
+        for dw in range(3):
+            part = mm(z[:, dh:dh + h, dw:dw + w].contiguous(), w2[dh, dw])
+            acc = part if acc is None else acc + part
+    return acc
+
+
+@pytest.mark.parametrize("c,cmid,g", [(96, 192, 48), (2160, 192, 48), (1024, 128, 32)])
+def test_3xtf32_products_hold_the_f32_tolerance(rng, c, cmid, g):
+    """The numerics of the f32 taps kernel: 3xTF32 products stay within the
+    f32 tolerance (rtol/atol 1e-4) of fused_dense_reference at DenseNet's
+    widths; one TF32 product alone would be an order of magnitude further."""
+    x, params = make_layer(rng, b=1, h=4, w=5, c=c, cmid=cmid, g=g)
+    xt, *pt = (torch.from_numpy(a) for a in (x, *params))
+    want = fused_dense.fused_dense_reference(xt, *pt)
+    got = _taps_3xtf32(xt, *pt)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    one = _taps_3xtf32(xt, *pt, mm=lambda a, b: torch.matmul(fused_dense.tf32_round(a),
+                                                             fused_dense.tf32_round(b)))
+    assert (one - want).abs().max() > 10 * (got - want).abs().max()

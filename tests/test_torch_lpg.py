@@ -88,6 +88,55 @@ def test_cpu_tensor_takes_plain_version(rng, impl):
     torch.testing.assert_close(got, tlpg.lpg_reference(pe, 4), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_fused_site_equals_old_composition(rng, r, dtype):
+    """The decoder's site in one pass gives the bits of the old
+    (lpg(plane_eq, r) / max_depth).to(dtype)."""
+    pe = torch.from_numpy(_random_plane_eq(rng))
+    want = (tlpg.lpg_reference(pe, r) / 10.0).to(dtype)
+    for got in (tlpg.local_planar_guidance(pe, r, max_depth=10.0, out_dtype=dtype),
+                tlpg.lpg_scaled_reference(pe, r, 10.0, dtype)):
+        assert got.dtype == dtype and tuple(got.shape) == (2, 4 * r, 6 * r)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_fused_site_gradient_float64(rng, r):
+    """Its backward equals autograd's through the old composition (the bare
+    LPG, the division, the cast), and passes gradcheck."""
+    pe = torch.from_numpy(_random_plane_eq(rng, b=1, h=2, w=3).astype(np.float64))
+    g = torch.from_numpy(rng.normal(size=(1, 2 * r, 3 * r)))
+    got_pe, old_pe, plain_pe = (pe.clone().requires_grad_(True) for _ in range(3))
+    tlpg.local_planar_guidance(got_pe, r, max_depth=10.0, out_dtype=torch.float64).backward(g)
+    (tlpg.local_planar_guidance(old_pe, r) / 10.0).to(torch.float64).backward(g)
+    (tlpg.lpg_reference(plain_pe, r) / 10.0).backward(g)
+    torch.testing.assert_close(got_pe.grad, old_pe.grad, rtol=0, atol=0)
+    torch.testing.assert_close(got_pe.grad, plain_pe.grad, rtol=1e-10, atol=1e-12)
+    assert torch.autograd.gradcheck(
+        lambda p: tlpg.local_planar_guidance(p, r, max_depth=10.0), (pe.requires_grad_(True),),
+        eps=1e-6, atol=1e-5)
+
+
+def test_fused_site_gradient_through_bf16(rng):
+    """With bf16 out, the gradient goes back through the cast to f32 and the
+    division as autograd takes them: the old composition's bits."""
+    pe = torch.from_numpy(_random_plane_eq(rng))
+    g = torch.from_numpy(rng.normal(size=(2, 16, 24)).astype(np.float32)).to(torch.bfloat16)
+    got_pe, old_pe = (pe.clone().requires_grad_(True) for _ in range(2))
+    tlpg.local_planar_guidance(got_pe, 4, max_depth=10.0, out_dtype=torch.bfloat16).backward(g)
+    (tlpg.local_planar_guidance(old_pe, 4) / 10.0).to(torch.bfloat16).backward(g)
+    torch.testing.assert_close(got_pe.grad, old_pe.grad, rtol=0, atol=0)
+
+
+def test_kernel_scale_is_pytorchs_f32_reciprocal():
+    """The kernel multiplies by f32(1 / f32(max_depth)), as PyTorch's CUDA
+    division by a Python float does; no scale is exactly 1."""
+    for md in (10.0, 80.0, 3.0):
+        assert lpg_cuda.inv_scale(md) == float(np.float32(1.0) / np.float32(md))
+    assert lpg_cuda.inv_scale(None) == 1.0
+
+
 def test_bad_impls_raise(rng):
     pe = torch.from_numpy(_random_plane_eq(rng))
     with pytest.raises(NotImplementedError, match="queue 2, item 4"):

@@ -47,3 +47,31 @@ def test_bounds_summed_over_phase3():
     # 12.9 MB of planes read and 29.5 MB of depth written at 3.35 TB/s
     assert lpg == pytest.approx(42.4e6 / 3.35e12 * 1e3, rel=2e-3)
     assert cs.lpg_bound(8, 60, 80, 8)[1] == "bytes"
+
+
+def test_f32_peak_is_3xtf32_on_the_tensor_cores():
+    """f32-accurate products run as three TF32 products: 494.7 / 3 TFLOP/s."""
+    assert cs.PEAK_FLOPS["float32"] == pytest.approx(494.7e12 / 3)
+
+
+def test_f32_dense_bound_summed_over_phase3():
+    """The 8 shapes at B=8 in f32: 118.6 GFLOP (hand count: 2 * B*H*W *
+    (C*192 + 9*192*48) per shape), three TF32 products each at 494.7
+    TFLOP/s; every shape bound by operations, also with 4-byte elements."""
+    shapes = cs.densenet161_layer_shapes()
+    flops = sum(2 * 8 * h * w * (c * 192 + 9 * 192 * 48) for h, w, c in shapes)
+    assert flops / 1e9 == pytest.approx(118.6, abs=0.05)
+    bounds = [cs.bound_ms(*cs.dense_work(8, h, w, c, esize=4), "float32") for h, w, c in shapes]
+    assert all(by == "operations" for _, by in bounds)
+    assert sum(b for b, _ in bounds) == pytest.approx(flops * 3 / 494.7e12 * 1e3, rel=1e-9)
+    assert sum(b for b, _ in bounds) == pytest.approx(0.72, abs=5e-3)
+
+
+def test_lpg_bound_with_bf16_out():
+    """12.9 MB of planes read and 14.7 MB of bf16 depth written at 3.35 TB/s."""
+    planes = sum(8 * h * w * 16 for _, h, w in cs.NYU_SITES)
+    depth = sum(8 * h * r * w * r * 2 for r, h, w in cs.NYU_SITES)
+    assert (planes, depth) == (12_902_400, 14_745_600)
+    lpg = sum(cs.lpg_bound(8, h, w, r, out_esize=2)[0] for r, h, w in cs.NYU_SITES)
+    assert lpg == pytest.approx((planes + depth) / 3.35e12 * 1e3, rel=1e-9)
+    assert lpg * 1e3 == pytest.approx(8.25, abs=0.01)
