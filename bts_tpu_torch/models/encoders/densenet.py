@@ -37,6 +37,7 @@ from bts_tpu_torch.models.layers import ENCODER_BN_EPS, TORCH_BN_MOMENTUM_ENCODE
 from bts_tpu_torch.ops.fused_dense import (
     fold_bn,
     fused_dense_layer,
+    pack_eo_kmajor,
     pack_taps_kmajor,
     pack_w2_eo,
 )
@@ -78,8 +79,8 @@ class DenseLayer(nn.Module):
         """(s1, b1, w1, s2, b2, w2, w2q, kmajor) in ``dtype`` on the weights'
         device, for the fused layer: BN folded in f32, w1 (C, Cmid), w2
         (3,3,Cmid,G), w2q = pack_w2_eo(w2) (None unless ``eo``), kmajor =
-        pack_taps_kmajor(w1, w2) for the taps kernel (None for eo): K-major
-        copies, in f32 split into their TF32 halves.
+        the kernel's K-major copies, in f32 split into their TF32 halves:
+        pack_eo_kmajor(w1, w2q) for eo, pack_taps_kmajor(w1, w2) for taps.
 
         Cached, keyed on every source tensor's storage and version, so
         load_state_dict, .to(), in-place changes to the BN statistics and a
@@ -100,8 +101,10 @@ class DenseLayer(nn.Module):
             w1 = c1[:, :, 0, 0].t()
             w2 = c2.permute(2, 3, 1, 0)
             weights = [t.to(dtype).contiguous() for t in (s1, b1, w1, s2, b2, w2)]
-            weights.append(pack_w2_eo(weights[5]) if eo else None)
-            weights.append(None if eo else pack_taps_kmajor(weights[2], weights[5]))
+            w2q = pack_w2_eo(weights[5]) if eo else None
+            weights.append(w2q)
+            weights.append(pack_eo_kmajor(weights[2], w2q) if eo
+                           else pack_taps_kmajor(weights[2], weights[5]))
         self._folded = (key, tuple(weights))
         return self._folded[1]
 

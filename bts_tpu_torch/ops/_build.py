@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
         lib.lpg_forward.argtypes = [ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
         lib.lpg_forward.restype = i32
         strided = [ptr, i64, i64, i64]  # a map's pointer and its (b, h, w) strides
-        params = [ptr] * 6  # s1, b1, w1, s2, b2, w2 (eo: w2q)
+        params = [ptr] * 6  # s1, b1, w1t, s2, b2, w2t (eo: w2qt), K-major
         sizes = [i32] * 6  # B, H, W (eo: U), C, Cmid, G
         for dt in ("f32", "bf16"):
             taps = getattr(lib, f"fused_dense_taps_{dt}")

@@ -75,15 +75,28 @@ def tf32_split(a: torch.Tensor):
     return big, tf32_round(a - big)
 
 
+def _split_f32(w1t: torch.Tensor, w2t: torch.Tensor):
+    """In f32, each K-major kernel stacked as its ``tf32_split`` ([0] big, [1]
+    small); in bf16 the two as they are."""
+    if w1t.dtype == torch.float32:
+        return torch.stack(tf32_split(w1t)), torch.stack(tf32_split(w2t))
+    return w1t, w2t
+
+
 def pack_taps_kmajor(w1: torch.Tensor, w2: torch.Tensor):
     """(w1t, w2t): the two kernels with K contiguous, as the taps kernels
     read their wgmma B operands: w1 (C, Cmid) -> (Cmid, C), w2 (3, 3, Cmid, G)
     -> (3, 3, G, Cmid). In f32 each is stacked as its ``tf32_split``:
     (2, Cmid, C) and (2, 3, 3, G, Cmid), [0] big and [1] small."""
-    w1t, w2t = w1.t().contiguous(), w2.permute(0, 1, 3, 2).contiguous()
-    if w1.dtype == torch.float32:
-        return torch.stack(tf32_split(w1t)), torch.stack(tf32_split(w2t))
-    return w1t, w2t
+    return _split_f32(w1.t().contiguous(), w2.permute(0, 1, 3, 2).contiguous())
+
+
+def pack_eo_kmajor(w1: torch.Tensor, w2q: torch.Tensor):
+    """(w1t, w2qt): the eo kernels' wgmma B operands with K contiguous: w1
+    (C, Cmid) -> (Cmid, C), w2q (3, 4*Cmid, 2G) -> (3, 2G, 4*Cmid). In f32
+    each is stacked as its ``tf32_split``: (2, Cmid, C) and (2, 3, 2G,
+    4*Cmid), [0] big and [1] small."""
+    return _split_f32(w1.t().contiguous(), w2q.transpose(1, 2).contiguous())
 
 
 def _bottleneck(x, s1, b1, w1, s2, b2) -> torch.Tensor:
@@ -139,8 +152,9 @@ def fused_dense_layer(
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel, which
     raises on what it cannot take. ``w2q`` is ``pack_w2_eo(w2)``, computed
-    here when not given; ``kmajor`` is ``pack_taps_kmajor(w1, w2)`` for the
-    taps kernel, computed by it when not given. ``out`` (B,H,W,G), when
+    here when not given; ``kmajor`` is the kernel's K-major weights,
+    ``pack_taps_kmajor(w1, w2)`` for taps or ``pack_eo_kmajor(w1, w2q)`` for
+    eo, computed by the kernel's wrapper when not given. ``out`` (B,H,W,G), when
     given, receives the result (the kernel writes it in place: it may be a
     channel slice of a larger NHWC buffer) and is returned.
     """
@@ -174,6 +188,7 @@ def fused_dense_layer(
     if out is None:
         out = torch.empty((b, h, w, g), dtype=x.dtype, device=x.device)
     fused_dense_cuda.fused_dense_eo_cuda(
-        x[:, :, 0::2], x[:, :, 1::2], s1, b1, w1, s2, b2, w2q, out=out.unflatten(2, (w // 2, 2))
+        x[:, :, 0::2], x[:, :, 1::2], s1, b1, w1, s2, b2, w2q, out=out.unflatten(2, (w // 2, 2)),
+        kmajor=kmajor,
     )
     return out

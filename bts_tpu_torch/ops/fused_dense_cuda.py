@@ -1,13 +1,13 @@
 """Wrappers of the hand-written CUDA fused dense layers.
 
 The CUDA port of ``docs/archive/fused_dense.py``'s ``fused_dense_layer``
-(taps: ``csrc/fused_dense_taps_sm90.cu`` in bf16,
-``csrc/fused_dense_taps_f32_sm90.cu`` in f32, both TMA + ``wgmma``) and
-``fused_dense_layer_eo`` (eo: ``csrc/fused_dense.cu``, f32 and bf16). Each
-wrapper checks its inputs,
-allocates the output with ``torch.empty`` unless it is given one, and
-launches on the current stream without synchronising. It never falls back
-to the plain versions in ``ops/fused_dense.py``: it launches or raises.
+(taps) and ``fused_dense_layer_eo`` (eo): both forms in bf16 in
+``csrc/fused_dense_taps_sm90.cu`` and in f32 in
+``csrc/fused_dense_taps_f32_sm90.cu`` (3xTF32), all TMA + ``wgmma``. Each
+wrapper checks its inputs, allocates the output with ``torch.empty`` unless
+it is given one, and launches on the current stream without synchronising.
+It never falls back to the plain versions in ``ops/fused_dense.py``: it
+launches or raises.
 
 The kernel reads x through its strides (channels must be contiguous), so a
 channel prefix of a larger NHWC buffer, or its even / odd columns, go in
@@ -21,19 +21,14 @@ from typing import Optional
 import torch
 
 from bts_tpu_torch.ops import _build
-from bts_tpu_torch.ops.fused_dense import pack_taps_kmajor
+from bts_tpu_torch.ops.fused_dense import pack_eo_kmajor, pack_taps_kmajor
 
 # Kernel launches in this process; each bumped once per launch, nowhere else.
 TAPS_LAUNCHES = 0
 EO_LAUNCHES = 0
 
-# The eo kernel's limits (csrc/fused_dense.cu): shared memory holds a tile of
-# the bottleneck at most 192 channels wide, taken in steps of 32.
-MAX_CMID = 192
-MAX_G = 64
-# The taps kernels (csrc/fused_dense_taps_sm90.cu, bf16;
-# csrc/fused_dense_taps_f32_sm90.cu, f32) are built for the (Cmid, G) of
-# DenseNet161 and DenseNet121.
+# Both forms' kernels are built for the (Cmid, G) of DenseNet161 and
+# DenseNet121.
 TAPS_SHAPES = ((192, 48), (128, 32))
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -62,6 +57,13 @@ def _check_params(dt, device, shapes, **tensors):
 
 
 def _common(x, s1, b1, w1, s2, b2, w2, eo):
+    """Checks what both forms share; the (Cmid, G) first, before the device,
+    so that a shape no kernel is built for is refused on any tensor."""
+    cmid = w1.shape[-1]
+    g = w2.shape[-1] // 2 if eo else w2.shape[-1]
+    if (cmid, g) not in TAPS_SHAPES:
+        raise ValueError(f"the fused dense kernels take (Cmid, G) in {TAPS_SHAPES} "
+                         f"(got {(cmid, g)})")
     if not x.is_cuda:
         raise ValueError(f"the fused dense kernel needs a CUDA tensor (got {x.device})")
     dt = x.dtype
@@ -69,18 +71,22 @@ def _common(x, s1, b1, w1, s2, b2, w2, eo):
         raise TypeError(f"the fused dense kernel takes float32 or bfloat16 (got {dt})")
     vec = 16 // x.element_size()
     c = x.shape[3]
-    cmid = w1.shape[-1]
-    if c % vec or cmid % 32 or not 0 < cmid <= MAX_CMID:
-        raise ValueError(f"the fused dense kernel needs C % {vec} == 0 and Cmid a multiple of "
-                         f"32 up to {MAX_CMID} (got C={c}, Cmid={cmid})")
-    g = w2.shape[-1] // 2 if eo else w2.shape[-1]
-    if g % 8 or not 0 < g <= MAX_G:
-        raise ValueError(f"the fused dense kernel needs G a multiple of 8 up to {MAX_G} (got {g})")
+    if c % vec:
+        raise ValueError(f"the fused dense kernel needs C % {vec} == 0 (got C={c})")
     w2s = (3, 4 * cmid, 2 * g) if eo else (3, 3, cmid, g)
     _check_params(dt, x.device, {"s1": (c,), "b1": (c,), "w1": (c, cmid), "s2": (cmid,),
                                  "b2": (cmid,), "w2": w2s},
                   s1=s1, b1=b1, w1=w1, s2=s2, b2=b2, w2=w2)
     return dt, vec, c, cmid, g
+
+
+def _check_kmajor(kmajor, dt, device, w1t_shape, w2t_shape):
+    """The K-major weights (f32: stacked TF32 halves)."""
+    split = (2,) if dt == torch.float32 else ()
+    w1t, w2t = kmajor
+    _check_params(dt, device, {"w1t": (*split, *w1t_shape), "w2t": (*split, *w2t_shape)},
+                  w1t=w1t, w2t=w2t)
+    return w1t, w2t
 
 
 def _run(fn, *args):
@@ -109,14 +115,9 @@ def fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out: Optional[torch.Tensor] = No
     elif tuple(out.shape) != (b, h, w, g):
         raise ValueError(f"out has shape {tuple(out.shape)}, expected {(b, h, w, g)}")
     _check_map("out", out, dt, x.device, vec)
-    if (cmid, g) not in TAPS_SHAPES:
-        raise ValueError(f"the taps kernel takes (Cmid, G) in {TAPS_SHAPES} (got {(cmid, g)})")
     if kmajor is None:
         kmajor = pack_taps_kmajor(w1, w2)
-    w1, w2 = kmajor
-    split = (2,) if dt == torch.float32 else ()
-    _check_params(dt, x.device, {"w1t": (*split, cmid, c), "w2t": (*split, 3, 3, g, cmid)},
-                  w1t=w1, w2t=w2)
+    w1, w2 = _check_kmajor(kmajor, dt, x.device, (cmid, c), (3, 3, g, cmid))
     if out.numel() == 0:
         return out
     _run(f"fused_dense_taps_{_SUFFIX[dt]}", x, *x.stride()[:3], s1, b1, w1, s2, b2, w2,
@@ -125,12 +126,15 @@ def fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out: Optional[torch.Tensor] = No
     return out
 
 
-def fused_dense_eo_cuda(xe, xo, s1, b1, w1, s2, b2, w2q, out: Optional[torch.Tensor] = None):
+def fused_dense_eo_cuda(xe, xo, s1, b1, w1, s2, b2, w2q, out: Optional[torch.Tensor] = None,
+                        kmajor=None):
     """CUDA eo layer. xe, xo (B,H,U,C) even / odd columns -> (B,H,U,2G),
     channels [0:G] the even output columns and [G:2G] the odd ones; w2q
-    (3, 4*Cmid, 2G) from ``pack_w2_eo``. ``out`` may also be given as
-    (B,H,U,2,G), e.g. a channel slice of an NHWC buffer split into column
-    pairs."""
+    (3, 4*Cmid, 2G) from ``pack_w2_eo``. The kernels read w1 and w2q K-major
+    (f32: split into TF32 halves): ``kmajor`` = ``pack_eo_kmajor(w1, w2q)``,
+    packed here when not given. ``out`` may also be given as (B,H,U,2,G),
+    e.g. a channel slice of an NHWC buffer split into column pairs; it must be
+    16-byte aligned with strides in multiples of 16 bytes (16-byte stores)."""
     global EO_LAUNCHES
     dt, vec, c, cmid, g = _common(xe, s1, b1, w1, s2, b2, w2q, eo=True)
     if xe.shape != xo.shape:
@@ -149,9 +153,15 @@ def fused_dense_eo_cuda(xe, xo, s1, b1, w1, s2, b2, w2q, out: Optional[torch.Ten
                          f"or {(b, h, u, 2, g)}")
     if pairs.device != xe.device or pairs.dtype != dt or pairs.stride(4) != 1:
         raise ValueError(f"out must be {dt} on {xe.device} with contiguous channels")
+    if any(s % vec for s in pairs.stride()[:4]) or pairs.data_ptr() % 16:
+        raise ValueError(f"out: strides must be multiples of {vec} elements and the data "
+                         f"16-byte aligned (16-byte stores); strides {pairs.stride()}")
+    if kmajor is None:
+        kmajor = pack_eo_kmajor(w1, w2q)
+    w1t, w2qt = _check_kmajor(kmajor, dt, xe.device, (cmid, c), (3, 2 * g, 4 * cmid))
     if out.numel() == 0:
         return out
     _run(f"fused_dense_eo_{_SUFFIX[dt]}", xe, *xe.stride()[:3], xo, *xo.stride()[:3],
-         s1, b1, w1, s2, b2, w2q, pairs, *pairs.stride()[:4], b, h, u, c, cmid, g)
+         s1, b1, w1t, s2, b2, w2qt, pairs, *pairs.stride()[:4], b, h, u, c, cmid, g)
     EO_LAUNCHES += 1
     return out

@@ -4,7 +4,8 @@ DenseNet161-BTS NYU at full width (``bts_size`` 512), 480x640, seeded
 weights, under ``inference_mode`` in ``--dtype`` bfloat16 (autocast, the
 default) or float32 (``cli.test``'s default dtype; TF32 off in cuDNN and
 cuBLAS, so the plain convs are f32 too); at each batch the dense layers run
-in turns plain, auto (the taps kernel), auto, plain. For each
+in turns plain, ``--dense_impl`` (auto, the taps kernel, by default; or eo),
+twice, and plain. For each
 run: ``torch.profiler`` over 3 forwards gives the kernels per forward, the
 device time per forward and its split by kind of kernel; the wall time per
 forward comes from 10 forwards without the profiler, host clock around work
@@ -26,7 +27,7 @@ import torch
 
 # Kinds of kernel, by the first pattern found in the lower-cased name.
 KINDS = (
-    ("fused dense", ("taps_sm90", "taps_f32", "fused_dense")),
+    ("fused dense", ("taps_sm90", "taps_f32")),  # both forms' kernels
     ("lpg", ("lpg_",)),
     ("cat", ("catarray", "cat_")),
     ("bn", ("batch_norm", "batchnorm", "bn_")),
@@ -84,6 +85,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, nargs="+", default=[8, 1])
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    parser.add_argument("--dense_impl", choices=("auto", "eo"), default="auto",
+                        help="the fused dense layers' form, timed against plain")
     parser.add_argument("--out", default=os.path.join("build", "profile_forward.json"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -105,7 +108,7 @@ def main(argv=None):
     for b in args.batches:
         x = torch.randn(b, 3, 480, 640, generator=gen).cuda()
         focal = torch.full((b,), 518.8579, device="cuda")
-        for dense_impl in ("plain", "auto", "auto", "plain"):
+        for dense_impl in ("plain", args.dense_impl, args.dense_impl, "plain"):
             run = profile_run(model, x, focal, dense_impl, bf16)
             run["device"] = smi
             runs.append(run)

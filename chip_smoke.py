@@ -14,13 +14,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``lpg_scaled_reference``; the site's unfused form (the bare kernel, then
      PyTorch's division and cast) is timed beside it;
    - the fused dense layer, taps and eo, in bf16 and f32, at the first and
-     the last layer of each DenseNet161 block at 480x640, batch 8 (taps at
-     batch 1 too), against the plain fused versions (the same rounding
-     points): bf16 rtol 2e-2, atol 2e-2 (one bf16 ulp of an output, about
-     2^-8 relative, may flip with the summation order), f32 rtol 1e-4, atol
-     1e-4 (f32 taps runs 3xTF32 products). The unfused cuDNN chain of the
-     layer (what ``dense_impl='plain'`` runs: BN, ReLU, 1x1, BN, ReLU, 3x3
-     and the concat) is timed beside them;
+     the last layer of each DenseNet161 block at 480x640, batch 8 and batch
+     1, against the plain fused versions (the same rounding points): bf16
+     rtol 2e-2, atol 2e-2 (one bf16 ulp of an output, about 2^-8 relative,
+     may flip with the summation order), f32 rtol 1e-4, atol 1e-4 (the f32
+     kernels run 3xTF32 products). The unfused cuDNN chain of the layer
+     (what ``dense_impl='plain'`` runs: BN, ReLU, 1x1, BN, ReLU, 3x3 and the
+     concat) is timed beside them;
 4. the port on the card against the port on the CPU in f32: DenseNet161-BTS
    at full width, seeded weights, 1x3x96x128, all 5 outputs at rtol 1e-3,
    atol 1e-4 (cuDNN sums in another order), with ``dense_impl`` auto (taps
@@ -35,12 +35,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    before, 78 eo launches); then the forward's img/s in bf16 at batch 1 and
    8, in turns, with the dense layers plain, through the taps kernel and
    through the eo kernel, and with the plain LPG (xla); and in f32 (TF32
-   off, as phase 3 set it) at batch 8 with the dense layers plain and auto.
+   off, as phase 3 set it) at batch 8 with the dense layers plain, auto and
+   eo.
 
 The line before the last is the kernels' JSON record (``launches`` from the
-serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forward for
-f32 taps, from the eo forward of phase 6 for eo; ``ms``/``plain_ms`` summed
-over the phase-3 shapes or sites, in the record's dtype); the last line is
+serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
+for f32 taps and f32 eo, from the bf16 eo forward of phase 6 for bf16 eo;
+``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
+record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
+its own work, ``layer_bound_ms`` the taps form's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,7 +65,8 @@ LPG_REPLACES = "bts_tpu/ops/lpg_pallas.py:38"
 MAX_DEPTH = 10.0  # NYU
 DENSE_SOURCE = {("taps", "bfloat16"): "bts_tpu_torch/csrc/fused_dense_taps_sm90.cu",
                 ("taps", "float32"): "bts_tpu_torch/csrc/fused_dense_taps_f32_sm90.cu",
-                ("eo", "bfloat16"): "bts_tpu_torch/csrc/fused_dense.cu"}
+                ("eo", "bfloat16"): "bts_tpu_torch/csrc/fused_dense_taps_sm90.cu",
+                ("eo", "float32"): "bts_tpu_torch/csrc/fused_dense_taps_f32_sm90.cu"}
 DENSE_REPLACES = {"taps": "docs/archive/fused_dense.py:167", "eo": "docs/archive/fused_dense.py:216"}
 DENSE_LAYERS = 78  # DenseNet161: 6 + 12 + 36 + 24
 DENSE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-4, atol=1e-4)}
@@ -121,11 +125,15 @@ def lpg_bound(b, h, w, r, out_esize=4):
     return bound_ms(6 * outputs, 16 * b * h * w + out_esize * outputs, "float32")
 
 
-def dense_work(b, h, w, c, cmid=192, g=48, esize=2):
+def dense_work(b, h, w, c, cmid=192, g=48, esize=2, eo=False):
     """(flops, bytes) of one dense layer: the 1x1 and the 3x3 products; x
-    read once, out written once, and the folded weights read once."""
-    flops = 2 * b * h * w * (c * cmid + 9 * cmid * g)
-    nbytes = esize * (b * h * w * (c + g) + c * cmid + 9 * cmid * g + 2 * (c + cmid))
+    read once, out written once, and the folded weights read once. The taps
+    form's 3x3 is 9*Cmid*G MACs a pixel; the eo form multiplies the whole
+    packed (3, 4*Cmid, 2G) kernel, zero blocks included: 12*Cmid*G MACs a
+    pixel, and reads its 24*Cmid*G weights."""
+    flops = 2 * b * h * w * (c * cmid + (12 if eo else 9) * cmid * g)
+    w2 = (24 if eo else 9) * cmid * g
+    nbytes = esize * (b * h * w * (c + g) + c * cmid + w2 + 2 * (c + cmid))
     return flops, nbytes
 
 
@@ -206,24 +214,21 @@ def seeded_dense_layer(torch, DenseLayer, c, gen):
 
 
 def check_dense_kernels(torch, fd, fdc, DenseLayer):
-    """Phase 3, the fused dense layer. Returns {impl: {dtype name: [max abs
-    err, kernel ms, plain ms, bound ms, flops, bytes]}} summed over the
-    shapes at B=8, {dtype name: ms} of the unfused cuDNN chain, also summed,
-    and the taps kernel's sums at B=1 {dtype name: {max_abs_err, ms,
-    plain_ms, cudnn_chain_ms, bound_ms}}."""
+    """Phase 3, the fused dense layer: taps and eo, bf16 and f32, at B=8 and
+    B=1, each shape against its plain version, then timed beside the plain
+    version and the unfused cuDNN chain. Returns {(impl, dtype name, B):
+    sums over the shapes} with keys max_abs_err (the largest), ms, plain_ms,
+    cudnn_chain_ms, bound_ms (the form's own work), flops, bytes and, for eo,
+    layer_bound_ms (the taps form's work: the same layer)."""
     gen = torch.Generator().manual_seed(3)
     launch = {"taps": fdc.fused_dense_cuda, "eo": fdc.fused_dense_eo_cuda}
     plain = {"taps": fd.fused_dense_reference, "eo": fd.fused_dense_eo_reference}
-    res = {impl: {} for impl in launch}
-    chain_ms = {}
-    live = {name: dict.fromkeys(("max_abs_err", "ms", "plain_ms", "cudnn_chain_ms", "bound_ms"),
-                                0.0) for name in DENSE_TOL}
+    res = {}
 
     def run(impl, name, args, kmajor, b, h, w, c):
         """One synchronised launch against the plain version, then both timed."""
-        kw = {"kmajor": kmajor} if impl == "taps" else {}
         counts = fdc.TAPS_LAUNCHES, fdc.EO_LAUNCHES
-        got = launch[impl](*args, **kw)
+        got = launch[impl](*args, kmajor=kmajor)
         torch.cuda.synchronize()
         added = fdc.TAPS_LAUNCHES - counts[0], fdc.EO_LAUNCHES - counts[1]
         if added != ((1, 0) if impl == "taps" else (0, 1)):
@@ -231,15 +236,23 @@ def check_dense_kernels(torch, fd, fdc, DenseLayer):
         want = plain[impl](*args)
         torch.testing.assert_close(got, want, **DENSE_TOL[name])
         err = (got.float() - want.float()).abs().max().item()
-        k = cuda_median_ms(lambda: launch[impl](*args, **kw), samples=20, reps=5)
+        k = cuda_median_ms(lambda: launch[impl](*args, kmajor=kmajor), samples=20, reps=5)
         p = cuda_median_ms(lambda: plain[impl](*args), samples=20, reps=5)
-        flops, nbytes = dense_work(b, h, w, c, esize=2 if name == "bfloat16" else 4)
+        esize = 2 if name == "bfloat16" else 4
+        flops, nbytes = dense_work(b, h, w, c, esize=esize, eo=impl == "eo")
         bound, by = bound_ms(flops, nbytes, name)
+        rec = {"max_abs_err": err, "ms": k, "plain_ms": p, "bound_ms": bound, "flops": flops,
+               "bytes": nbytes}
+        layer = ""
+        if impl == "eo":
+            rec["layer_bound_ms"] = bound_ms(*dense_work(b, h, w, c, esize=esize), name)[0]
+            layer = (f", layer bound {rec['layer_bound_ms'] * 1e3!r} us "
+                     f"({rec['layer_bound_ms'] / k:.2%})")
         print(f"dense {impl} {name} B={b} {h}x{w} C={c}: max_abs_err {err!r}, "
               f"kernel {k!r} ms, plain {p!r} ms (median of 20 samples of 5 calls); "
-              f"bound {bound * 1e3!r} us by {by}, {bound / k:.2%} of it, "
+              f"bound {bound * 1e3!r} us by {by}, {bound / k:.2%} of it{layer}, "
               f"{flops / k / 1e9!r} TFLOP/s")
-        return err, k, p, bound, (flops, nbytes)
+        return rec
 
     def chain(layer, x, name, b, h, w, c):
         xn = x.permute(0, 3, 1, 2).contiguous()
@@ -254,32 +267,23 @@ def check_dense_kernels(torch, fd, fdc, DenseLayer):
     for h, w, c in densenet161_layer_shapes():
         layer = seeded_dense_layer(torch, DenseLayer, c, gen)
         x32 = torch.randn(8, h, w, c, generator=gen).cuda()
-        for dt in (torch.bfloat16, torch.float32):
-            name = str(dt).removeprefix("torch.")
-            x = x32.to(dt)
-            for impl in ("taps", "eo"):
-                s1, b1, w1, s2, b2, w2, w2q, kmajor = layer.folded(dt, impl == "eo")
-                args = ((x,) if impl == "taps" else (x[:, :, 0::2], x[:, :, 1::2])) + (
-                    s1, b1, w1, s2, b2, w2 if impl == "taps" else w2q)
-                err, k, p, bound, work = run(impl, name, args, kmajor, 8, h, w, c)
-                acc = res[impl].setdefault(name, [0.0, 0.0, 0.0, 0.0, 0, 0])
-                res[impl][name] = [max(acc[0], err), acc[1] + k, acc[2] + p, acc[3] + bound,
-                                   acc[4] + work[0], acc[5] + work[1]]
-            chain_ms[name] = chain_ms.get(name, 0.0) + chain(layer, x, name, 8, h, w, c)
-        # B=1, the live path, where the grid is smallest: the taps kernels.
-        for dt in (torch.bfloat16, torch.float32):
-            name = str(dt).removeprefix("torch.")
-            x1 = x32[:1].to(dt)
-            s1, b1, w1, s2, b2, w2, _, kmajor = layer.folded(dt, False)
-            err, k, p, bound, _ = run("taps", name, (x1, s1, b1, w1, s2, b2, w2), kmajor,
-                                      1, h, w, c)
-            lv = live[name]
-            lv["max_abs_err"] = max(lv["max_abs_err"], err)
-            lv["ms"] += k
-            lv["plain_ms"] += p
-            lv["bound_ms"] += bound
-            lv["cudnn_chain_ms"] += chain(layer, x1, name, 1, h, w, c)
-    return res, chain_ms, live
+        for b in (8, 1):
+            for dt in (torch.bfloat16, torch.float32):
+                name = str(dt).removeprefix("torch.")
+                x = x32[:b].to(dt)
+                for impl in ("taps", "eo"):
+                    s1, b1, w1, s2, b2, w2, w2q, kmajor = layer.folded(dt, impl == "eo")
+                    args = ((x,) if impl == "taps" else (x[:, :, 0::2], x[:, :, 1::2])) + (
+                        s1, b1, w1, s2, b2, w2 if impl == "taps" else w2q)
+                    rec = run(impl, name, args, kmajor, b, h, w, c)
+                    acc = res.setdefault((impl, name, b), {"cudnn_chain_ms": 0.0})
+                    for key, v in rec.items():
+                        acc[key] = max(acc.get(key, v), v) if key == "max_abs_err" else (
+                            acc.get(key, 0) + v)
+                ch = chain(layer, x, name, b, h, w, c)
+                for impl in ("taps", "eo"):
+                    res[impl, name, b]["cudnn_chain_ms"] += ch
+    return res
 
 
 def write_nyu_frames(root, n=8, h=480, w=640):
@@ -367,17 +371,14 @@ def main():
     for key, (err, k, p, bound, u) in lpg_res.items():
         print(f"lpg {key}, three NYU sites at B=8: kernel {k!r} ms, plain {p!r} ms, unfused "
               f"{u!r} ms, bound {bound!r} ms by bytes ({bound / k:.2%}), max_abs_err {err!r}")
-    dense, chain_ms, live = check_dense_kernels(torch, fused_dense, fused_dense_cuda, DenseLayer)
-    for impl, by_dt in dense.items():
-        for name, (err, k, p, bound, _, _) in by_dt.items():
-            print(f"dense {impl} {name}, 8 shapes summed at B=8: kernel {k!r} ms, plain {p!r} ms, "
-                  f"cuDNN chain {chain_ms[name]!r} ms, bound {bound!r} ms ({bound / k:.2%}), "
-                  f"max_abs_err {err!r}")
-    for name, lv in live.items():
-        print(f"dense taps {name}, 8 shapes summed at B=1: kernel {lv['ms']!r} ms, plain "
-              f"{lv['plain_ms']!r} ms, cuDNN chain {lv['cudnn_chain_ms']!r} ms, bound "
-              f"{lv['bound_ms']!r} ms ({lv['bound_ms'] / lv['ms']:.2%}), max_abs_err "
-              f"{lv['max_abs_err']!r}")
+    dense = check_dense_kernels(torch, fused_dense, fused_dense_cuda, DenseLayer)
+    for (impl, name, b), r in dense.items():
+        layer = (f", layer bound {r['layer_bound_ms']!r} ms "
+                 f"({r['layer_bound_ms'] / r['ms']:.2%})" if impl == "eo" else "")
+        print(f"dense {impl} {name}, 8 shapes summed at B={b}: kernel {r['ms']!r} ms, plain "
+              f"{r['plain_ms']!r} ms, cuDNN chain {r['cudnn_chain_ms']!r} ms, bound "
+              f"{r['bound_ms']!r} ms ({r['bound_ms'] / r['ms']:.2%}){layer}, max_abs_err "
+              f"{r['max_abs_err']!r}")
 
     phase("4 port on the card against the port on the CPU, f32")
     cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512)
@@ -387,15 +388,14 @@ def main():
     cpu_model, gpu_model = create_model(cfg).eval(), create_model(cfg).cuda().eval()
     with torch.inference_mode():
         want = cpu_model(x, focal)
+    f32_path = {}  # the launches of each f32 forward, by its dense kernel
     for dense_impl, kernel in (("auto", "taps"), ("eo", "eo")):
         gpu_model.encoder.dense_impl = dense_impl
         reset_counts()
         with torch.inference_mode():
             got = gpu_model(x.cuda(), focal.cuda())
             torch.cuda.synchronize()
-        counts = check_counts(f"f32 forward, dense_impl {dense_impl}", 1, kernel)
-        if dense_impl == "auto":
-            f32_path = counts
+        f32_path[kernel] = check_counts(f"f32 forward, dense_impl {dense_impl}", 1, kernel)
         for name, g, w in zip(["lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth"], got, want,
                               strict=True):
             torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-4)
@@ -476,7 +476,7 @@ def main():
             print(f"forward bf16 480x640 batch {b}: dense_impl {i[0]}, lpg_impl {i[1]}: "
                   f"{rate!r} img/s ({smi})")
     # f32, cli.test's default dtype (TF32 off, as phase 3 set it).
-    impls = [("plain", "auto"), ("auto", "auto")]
+    impls = [("plain", "auto"), ("auto", "auto"), ("eo", "auto")]
     runs = [(i, throughput(torch, model, 8, *i, iters=10, bf16=False))
             for i in impls + impls[::-1]]
     print(f"f32 batch 8 runs in turn: {runs!r}")
@@ -498,14 +498,18 @@ def main():
         return rec if unfused is None else {**rec, "unfused_ms": unfused}
 
     def dense_record(impl, name, launches, n_fwd):
-        err, ms, plain_ms, bound, flops, nbytes = dense[impl][name]
+        r = dense[impl, name, 8]
+        eo = ("layer_bound_ms",) if impl == "eo" else ()
         return {
             "name": f"fused_dense_{impl}_{ {'bfloat16': 'bf16', 'float32': 'f32'}[name]}",
             "route": "cuda", "source": DENSE_SOURCE[impl, name],
             "replaces": DENSE_REPLACES[impl], "launches": launches[impl],
-            "launches_per_forward": launches[impl] // n_fwd, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_ms(flops, nbytes, name)[1],
-            "library_ms": None, "cudnn_chain_ms": chain_ms[name],
+            "launches_per_forward": launches[impl] // n_fwd, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": bound_ms(r["flops"], r["bytes"], name)[1], "library_ms": None,
+            "cudnn_chain_ms": r["cudnn_chain_ms"], **{k: r[k] for k in eo},
+            "b1": {k: dense[impl, name, 1][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                        "cudnn_chain_ms", "bound_ms", *eo)},
         }
 
     print(json.dumps({"kernels": [
@@ -514,11 +518,10 @@ def main():
          "launches_per_forward": serving["lpg"] // forwards, **lpg_record("bfloat16"),
          "bound_by": "bytes", "library_ms": None,
          "float32": lpg_record("float32"), "bare_float32": lpg_record("bare")},
-        {**dense_record("taps", "bfloat16", serving, forwards), "b1": live["bfloat16"]},
-        {**dense_record("taps", "float32", f32_path, 1), "b1": live["float32"]},
-        {**dense_record("eo", "bfloat16", eo_path, 1),
-         "f32": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"), dense["eo"]["float32"][:4]),
-                     cudnn_chain_ms=chain_ms["float32"])},
+        dense_record("taps", "bfloat16", serving, forwards),
+        dense_record("taps", "float32", f32_path["taps"], 1),
+        dense_record("eo", "bfloat16", eo_path, 1),
+        dense_record("eo", "float32", f32_path["eo"], 1),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -174,12 +174,22 @@ def test_fold_cache_follows_weights(impl):
         other.base_model.denseblock1.denselayer1.norm1.running_mean.add_(0.5)
         for g, w in zip(enc(x), other(x), strict=True):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+        # The kernels' K-major weights are refolded with the rest.
+        layer = enc.base_model.denseblock1.denselayer2
+        before = layer.folded(torch.float32, impl == "eo")[7]
+        layer.conv2.weight.mul_(2.0)
+        _, _, w1, _, _, w2, w2q, kmajor = layer.folded(torch.float32, impl == "eo")
+        want = (fused_dense.pack_eo_kmajor(w1, w2q) if impl == "eo"
+                else fused_dense.pack_taps_kmajor(w1, w2))
+        for got, new in zip(kmajor, want, strict=True):
+            torch.testing.assert_close(got, new, rtol=0, atol=0)
+        assert not torch.equal(kmajor[1], before[1])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
     from bts_tpu_torch.ops import fused_dense_cuda
 
-    x, params = make_layer(rng, c=16, cmid=32)
+    x, params = make_layer(rng, c=16, cmid=128, g=32)
     xt, *pt = (torch.from_numpy(a) for a in (x, *params))
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_dense_cuda.fused_dense_cuda(xt, *pt)
@@ -202,30 +212,34 @@ def test_weights_made_under_inference_mode_fold_each_call():
 
 
 @pytest.mark.parametrize("dtype,eo", [(torch.bfloat16, False), (torch.bfloat16, True),
-                                      (torch.float32, False)])
+                                      (torch.float32, False), (torch.float32, True)])
 def test_folded_packs_kmajor_for_the_bf16_taps_kernel(dtype, eo):
-    """The taps kernels read both kernels K-major: w1t is conv1's own
-    (Cmid, C) layout and w2t conv2's taps as (3, 3, G, Cmid); in f32 each is
-    stacked as its TF32 halves (big, small)."""
+    """The kernels read both kernels K-major: w1t is conv1's own (Cmid, C)
+    layout, and w2t conv2's taps as (3, 3, G, Cmid) for taps or pack_w2_eo's
+    kernel as (3, 2G, 4*Cmid) for eo; in f32 each is stacked as its TF32
+    halves (big, small)."""
     layer = _randomize(densenet.DenseLayer(40, 8), 3).eval()
     s1, b1, w1, s2, b2, w2, w2q, kmajor = layer.folded(dtype, eo)
-    if eo:
-        assert kmajor is None
-        return
     w1t, w2t = kmajor
     assert w1t.is_contiguous() and w2t.is_contiguous() and w1t.dtype == w2t.dtype == dtype
     want1 = layer.conv1.weight[:, :, 0, 0].to(dtype)
     want2 = layer.conv2.weight.permute(2, 3, 0, 1).to(dtype)
+    if eo:
+        want2 = fused_dense.pack_w2_eo(layer.conv2.weight.permute(2, 3, 1, 0).to(dtype))
+        want2 = want2.transpose(1, 2)
+        assert tuple(want2.shape) == (3, 16, 128)
     if dtype == torch.float32:
-        assert tuple(w1t.shape) == (2, 32, 40) and tuple(w2t.shape) == (2, 3, 3, 8, 32)
+        assert tuple(w1t.shape) == (2, 32, 40)
+        assert tuple(w2t.shape) == ((2, 3, 16, 128) if eo else (2, 3, 3, 8, 32))
         for got, want in ((w1t, want1), (w2t, want2)):
             torch.testing.assert_close(got[0], fused_dense.tf32_round(want), rtol=0, atol=0)
             torch.testing.assert_close(got[0] + got[1], want, rtol=2.0**-21, atol=0)
     else:
         torch.testing.assert_close(w1t, want1, rtol=0, atol=0)
         torch.testing.assert_close(w2t, want2, rtol=0, atol=0)
-    assert tuple(map(torch.Tensor.tolist, fused_dense.pack_taps_kmajor(w1, w2))) == (
-        w1t.tolist(), w2t.tolist())
+    pack = (fused_dense.pack_eo_kmajor(w1, w2q) if eo
+            else fused_dense.pack_taps_kmajor(w1, w2))
+    assert tuple(map(torch.Tensor.tolist, pack)) == (w1t.tolist(), w2t.tolist())
     assert layer.folded(dtype, eo)[7] is kmajor  # cached
 
 
@@ -273,16 +287,157 @@ def _taps_3xtf32(x, s1, b1, w1, s2, b2, w2, mm=_mm_3xtf32):
     return acc
 
 
-@pytest.mark.parametrize("c,cmid,g", [(96, 192, 48), (2160, 192, 48), (1024, 128, 32)])
-def test_3xtf32_products_hold_the_f32_tolerance(rng, c, cmid, g):
-    """The numerics of the f32 taps kernel: 3xTF32 products stay within the
-    f32 tolerance (rtol/atol 1e-4) of fused_dense_reference at DenseNet's
-    widths; one TF32 product alone would be an order of magnitude further."""
-    x, params = make_layer(rng, b=1, h=4, w=5, c=c, cmid=cmid, g=g)
+def _eo_3xtf32(xe, xo, s1, b1, w1, s2, b2, w2q, mm=_mm_3xtf32, split=2):
+    """The f32 eo kernel's arithmetic in plain PyTorch (for these tests
+    only): the bottleneck as in ``_taps_3xtf32``; per dh, the product of
+    [zo[u-1], ze[u], zo[u], ze[u+1]] with w2q[dh] over each CTA's share of
+    the channels (``split`` of them), one 32-channel K block (a ring slot)
+    at a time, each slot's product promoted into an f32 sum; the 3 x split
+    partial sums added at the end."""
+    _, h, u, _ = xe.shape
+    cmid = w1.shape[1]
+
+    def bottleneck(x):
+        y = torch.relu(x * s1 + b1)
+        return torch.nn.functional.pad(torch.relu(mm(y, w1) * s2 + b2), (0, 0, 1, 1, 1, 1))
+
+    ze, zo = bottleneck(xe), bottleneck(xo)
+    taps = (zo[:, :, 0:u], ze[:, :, 1:u + 1], zo[:, :, 1:u + 1], ze[:, :, 2:u + 2])
+    out = 0
+    share = cmid // split
+    for rank in range(split):
+        for dh in range(3):
+            part = 0
+            for blk, tap in enumerate(taps):
+                for c0 in range(rank * share, (rank + 1) * share, 32):
+                    k0 = blk * cmid + c0
+                    part = part + mm(tap[:, dh:dh + h, :, c0:c0 + 32].contiguous(),
+                                     w2q[dh, k0:k0 + 32])
+            out = out + part
+    return out
+
+
+@pytest.mark.parametrize("c,cmid,g,form", [(96, 192, 48, "taps"), (2160, 192, 48, "taps"),
+                                           (1024, 128, 32, "taps"), (2160, 192, 48, "eo")],
+                         ids=["96-192-48", "2160-192-48", "1024-128-32", "eo-2160-192-48"])
+def test_3xtf32_products_hold_the_f32_tolerance(rng, c, cmid, g, form):
+    """The numerics of the f32 kernels: 3xTF32 products stay within the
+    f32 tolerance (rtol/atol 1e-4) of fused_dense_reference (eo:
+    fused_dense_eo_reference, K = 4*Cmid per dh, promoted per slot) at
+    DenseNet's widths; one TF32 product alone would be an order of magnitude
+    further."""
+    x, params = make_layer(rng, b=1, h=4, w=6 if form == "eo" else 5, c=c, cmid=cmid, g=g)
     xt, *pt = (torch.from_numpy(a) for a in (x, *params))
-    want = fused_dense.fused_dense_reference(xt, *pt)
-    got = _taps_3xtf32(xt, *pt)
+    one_tf32 = lambda a, b: torch.matmul(fused_dense.tf32_round(a), fused_dense.tf32_round(b))
+    if form == "eo":
+        args = (xt[:, :, 0::2], xt[:, :, 1::2], *pt[:5], fused_dense.pack_w2_eo(pt[5]))
+        want = fused_dense.fused_dense_eo_reference(*args)
+        got, one = _eo_3xtf32(*args), _eo_3xtf32(*args, mm=one_tf32)
+    else:
+        want = fused_dense.fused_dense_reference(xt, *pt)
+        got, one = _taps_3xtf32(xt, *pt), _taps_3xtf32(xt, *pt, mm=one_tf32)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    one = _taps_3xtf32(xt, *pt, mm=lambda a, b: torch.matmul(fused_dense.tf32_round(a),
-                                                             fused_dense.tf32_round(b)))
     assert (one - want).abs().max() > 10 * (got - want).abs().max()
+
+
+def test_pack_eo_kmajor_is_w2q_transposed(rng):
+    """pack_eo_kmajor: w1 (C, Cmid) -> (Cmid, C) and w2q (3, 4*Cmid, 2G) ->
+    (3, 2G, 4*Cmid), contiguous; in f32 stacked as (big, small) =
+    tf32_split of each, bit for bit."""
+    _, params = make_layer(rng, c=40, cmid=32, g=8)
+    w1 = torch.from_numpy(params[2])
+    w2q = fused_dense.pack_w2_eo(torch.from_numpy(params[5]))
+    for dtype in (torch.bfloat16, torch.float32):
+        w1t, w2qt = fused_dense.pack_eo_kmajor(w1.to(dtype), w2q.to(dtype))
+        assert w1t.is_contiguous() and w2qt.is_contiguous()
+        want1, want2 = w1.to(dtype).t(), w2q.to(dtype).transpose(1, 2)
+        if dtype == torch.bfloat16:
+            assert tuple(w2qt.shape) == (3, 16, 128)
+            torch.testing.assert_close(w1t, want1, rtol=0, atol=0)
+            torch.testing.assert_close(w2qt, want2, rtol=0, atol=0)
+            continue
+        assert tuple(w1t.shape) == (2, 32, 40) and tuple(w2qt.shape) == (2, 3, 16, 128)
+        for got, want in ((w1t, want1), (w2qt, want2)):
+            big, small = fused_dense.tf32_split(want.contiguous())
+            assert torch.equal(got[0], big) and torch.equal(got[1], small)
+
+
+# The eo kernels' tile geometry (csrc/fused_dense_taps_sm90.cu and
+# csrc/fused_dense_taps_f32_sm90.cu): 8 rows x 8 column pairs, a halo of 10
+# rows x 9 entries per parity, ze's box at row 0 and zo's at row 96.
+EO_PAIRS, EO_W, EO_ODD_ROW, EO_ROWS = 8, 9, 96, 192
+
+
+def _eo_tiles_emulated(xe, xo, s1, b1, w1, s2, b2, w2q):
+    """fused_dense_eo's output computed as the eo kernels address it, tile
+    by tile, in f32 numpy: each tile's two parity boxes (zero fill outside
+    the image, zo's box starting at u0 - 1), stage 1 over all 192 rows with
+    the per-row out-of-image mask, and stage 2's A rows for blocks 0-3 per
+    dh. Returns the output and the tiles' origins (b, oy0, u0)."""
+    bsz, h, u, c = xe.shape
+    cmid, g2 = w1.shape[1], w2q.shape[2]
+    out = np.full((bsz, h, u, g2), np.nan, np.float32)
+    tiles = []
+    for b in range(bsz):
+        for oy0 in range(0, h, 8):
+            for u0 in range(0, u, EO_PAIRS):
+                tiles.append((b, oy0, u0))
+                slot = np.zeros((EO_ROWS, c), np.float32)
+                inside = np.zeros(EO_ROWS, bool)
+                for odd, (x, first) in enumerate(((xe, u0), (xo, u0 - 1))):
+                    for i in range(10 * EO_W):
+                        gy, gu = oy0 - 1 + i // EO_W, first + i % EO_W
+                        r = odd * EO_ODD_ROW + i
+                        if 0 <= gy < h and 0 <= gu < u:
+                            slot[r] = x[b, gy, gu]
+                            inside[r] = True
+                y = np.maximum(slot * s1 + b1, 0)  # the TMA's zeros go through BN1
+                z = np.maximum((y @ w1) * s2 + b2, 0) * inside[:, None]
+                for m in range(64):
+                    ty, tu = divmod(m, EO_PAIRS)
+                    if oy0 + ty >= h or u0 + tu >= u:
+                        continue
+                    acc = np.zeros(g2, np.float32)
+                    for dh in range(3):
+                        rows = [(EO_ODD_ROW if blk % 2 == 0 else 0) + (ty + dh) * EO_W + tu
+                                + blk // 2 for blk in range(4)]
+                        acc += np.concatenate([z[r] for r in rows]) @ w2q[dh]
+                    out[b, oy0 + ty, u0 + tu] = acc
+    return out, tiles
+
+
+@pytest.mark.parametrize("h,u", [(11, 10), (8, 8), (17, 3)])
+def test_eo_kernel_addressing_matches_reference(rng, h, u):
+    """The eo kernels' addressing, emulated tile by tile in numpy, equals
+    fused_dense_eo_reference in f32: left-edge tiles (zo's box starts at
+    u0 - 1 = -1), right-edge tiles with a ragged U (10 = 8 + 2 pairs), and
+    top and bottom edges (ragged H)."""
+    x, params = make_layer(rng, b=2, h=h, w=2 * u, c=16, cmid=24, g=8)
+    s1, b1, w1, s2, b2, w2 = params
+    w2q = np.array(archive.pack_w2_eo(jnp.asarray(w2)))
+    xe, xo = x[:, :, 0::2], x[:, :, 1::2]
+    got, tiles = _eo_tiles_emulated(xe, xo, s1, b1, w1, s2, b2, w2q)
+    want = fused_dense.fused_dense_eo_reference(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (xe, xo, s1, b1, w1, s2, b2, w2q)))
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-6)
+    assert {u0 for _, _, u0 in tiles} == set(range(0, u, EO_PAIRS))
+    assert len({oy0 for _, oy0, _ in tiles}) == -(-h // 8)
+
+
+@pytest.mark.parametrize("eo", [False, True], ids=["taps", "eo"])
+def test_kernel_wrappers_refuse_shapes_without_a_kernel(rng, eo):
+    """Both forms' kernels are built for (Cmid, G) in TAPS_SHAPES; any other
+    is refused before the device is looked at, so also on the CPU."""
+    from bts_tpu_torch.ops import fused_dense_cuda
+
+    x, params = make_layer(rng, c=16, cmid=64, g=16)
+    xt, *pt = (torch.from_numpy(a) for a in (x, *params))
+    with pytest.raises(ValueError, match=r"\(Cmid, G\) in .*got \(64, 16\)"):
+        if eo:
+            fused_dense_cuda.fused_dense_eo_cuda(
+                xt[:, :, 0::2], xt[:, :, 1::2], *pt[:5], fused_dense.pack_w2_eo(pt[5]))
+        else:
+            fused_dense_cuda.fused_dense_cuda(xt, *pt)
+    assert (64, 16) not in fused_dense_cuda.TAPS_SHAPES
+    assert fused_dense_cuda.TAPS_LAUNCHES == fused_dense_cuda.EO_LAUNCHES == 0

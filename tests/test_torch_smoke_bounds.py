@@ -75,3 +75,31 @@ def test_lpg_bound_with_bf16_out():
     lpg = sum(cs.lpg_bound(8, h, w, r, out_esize=2)[0] for r, h, w in cs.NYU_SITES)
     assert lpg == pytest.approx((planes + depth) / 3.35e12 * 1e3, rel=1e-9)
     assert lpg * 1e3 == pytest.approx(8.25, abs=0.01)
+
+
+def test_eo_work_is_four_thirds_of_the_taps_3x3():
+    """The eo form multiplies the whole packed (3, 4*Cmid, 2G) kernel, zero
+    blocks included: its 3x3 is 4/3 of the taps form's (12 against 9 *
+    Cmid * G MACs a pixel) and its 1x1 the same, summed over the phase-3
+    shapes at B=8; it reads 24 * Cmid * G weights against 9."""
+    shapes = cs.densenet161_layer_shapes()
+    one = sum(2 * 8 * h * w * c * 192 for h, w, c in shapes)
+    taps = sum(cs.dense_work(8, h, w, c)[0] for h, w, c in shapes)
+    eo = sum(cs.dense_work(8, h, w, c, eo=True)[0] for h, w, c in shapes)
+    assert eo - one == pytest.approx(4 / 3 * (taps - one), rel=1e-12)
+    assert (eo - taps) / 1e9 == pytest.approx(2 * 8 * 51_000 * 3 * 192 * 48 / 1e9, rel=1e-12)
+    for esize in (2, 4):
+        nbytes = cs.dense_work(8, 15, 20, 2160, esize=esize, eo=True)[1]
+        assert nbytes - cs.dense_work(8, 15, 20, 2160, esize=esize)[1] == esize * 15 * 192 * 48
+
+
+@pytest.mark.parametrize("dtype,ms,by_bytes", [("bfloat16", 0.14668, 3), ("float32", 0.85603, 0)])
+def test_eo_bound_summed_over_phase3(dtype, ms, by_bytes):
+    """eo's bound on its own work over the 8 shapes at B=8: every shape
+    bound by operations but, in bf16, the last of 30x40 and both of 15x20
+    (bytes)."""
+    esize = 2 if dtype == "bfloat16" else 4
+    bounds = [cs.bound_ms(*cs.dense_work(8, h, w, c, esize=esize, eo=True), dtype)
+              for h, w, c in cs.densenet161_layer_shapes()]
+    assert sum(b for b, _ in bounds) == pytest.approx(ms, abs=5e-6)
+    assert [by for _, by in bounds].count("bytes") == by_bytes
