@@ -14,7 +14,7 @@ import argparse
 import dataclasses
 import os
 import sys
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -121,6 +121,13 @@ class Config:
     def depth_mask_min(self) -> float:
         """Training loss valid-depth threshold (NYU > 0.1, KITTI > 1.0)."""
         return 0.1 if self.dataset == "nyu" else 1.0
+
+    @property
+    def resolved_end_learning_rate(self) -> float:
+        """Reference: pytorch/bts_main.py:423 (-1 means 0.1 * lr)."""
+        if self.end_learning_rate != -1.0:
+            return self.end_learning_rate
+        return 0.1 * self.learning_rate
 
     @property
     def resolved_normalization(self) -> str:
@@ -230,3 +237,20 @@ def _check(cfg: Config) -> Config:
             )
     normalization = "imagenet" if cfg.normalization == "auto" else cfg.normalization
     return cfg.replace(model_flavor="pt", normalization=normalization).validate()
+
+
+def config_to_argfile(cfg: Config) -> str:
+    """Serialize a Config back to reference-style args-file text (the
+    non-default fields)."""
+    lines: List[str] = []
+    defaults = Config()
+    for field in dataclasses.fields(Config):
+        val = getattr(cfg, field.name)
+        if val == getattr(defaults, field.name):
+            continue
+        if isinstance(val, bool):
+            # val != default here, so non-default False means --no-<name>.
+            lines.append(f"--{field.name}" if val else f"--no-{field.name}")
+        else:
+            lines.append(f"--{field.name} {val}")
+    return "\n".join(lines) + "\n"

@@ -1,1 +1,2 @@
-"""Host-side data loading of the port: manifests, eval transforms, EvalLoader."""
+"""Data of the port: manifests, host transforms, the train and eval loaders,
+and the on-device train augmentation."""

@@ -1,15 +1,18 @@
-"""The eval/test data loader: ``EvalLoader`` of ``bts_tpu/data/loader.py``.
+"""Data loaders: a copy of ``bts_tpu/data/loader.py``.
 
-Exact-count, no-padding sharding: rank r takes indices[r::world], as the
-reference's DistributedSamplerNoEvenlyDivisible does
-(distributed_sampler_no_evenly_divisible.py:7-72). Batches are padded with
-an explicit validity weight instead of dropping samples, so the model runs
-at batch > 1 and metric sums stay exact. The training loader comes with
-the training slice.
+  * ``TrainLoader``: each process's shard of a deterministic per-epoch
+    shuffle (DistributedSampler.set_epoch, pytorch/bts_main.py:435-437),
+    loaded on host threads, as NHWC numpy batches.
+  * ``EvalLoader``: exact-count, no-padding sharding -- rank r takes
+    indices[r::world], as the reference's DistributedSamplerNoEvenlyDivisible
+    does (distributed_sampler_no_evenly_divisible.py:7-72). Batches are
+    padded with an explicit validity weight instead of dropping samples, so
+    the model runs at batch > 1 and metric sums stay exact.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import os
 from typing import Iterator, List, Optional
 
@@ -17,7 +20,85 @@ import numpy as np
 
 from bts_tpu_torch.config import Config
 from bts_tpu_torch.data import transforms
-from bts_tpu_torch.data.manifest import load_manifest
+from bts_tpu_torch.data.manifest import ManifestEntry, load_manifest
+
+
+class TrainLoader:
+    """Deterministic, sharded, threaded training loader."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        num_shards: int = 1,
+        shard_index: int = 0,
+        num_workers: Optional[int] = None,
+    ):
+        self.cfg = cfg
+        self.entries = load_manifest(cfg.filenames_file)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        # cfg.batch_size is the GLOBAL batch (the reference's DDP divides it
+        # per worker, pytorch/bts_main.py:351): each process loads its slice.
+        self.host_batch = max(cfg.batch_size // max(num_shards, 1), 1)
+        self.num_workers = num_workers or max(cfg.num_threads, 1)
+        self.normalization = cfg.resolved_normalization  # resolved once
+
+    def __len__(self):
+        return len(self.entries)
+
+    def steps_per_epoch(self) -> int:
+        """Floor division: the final partial batch of each epoch is dropped
+        (a fixed batch shape, and no padding to bias BN's batch statistics),
+        as in ``bts_tpu``; the reference keeps it (drop_last=False)."""
+        return len(self._shard_indices(0)) // self.host_batch
+
+    def _shard_indices(self, epoch: int) -> np.ndarray:
+        """Per-epoch deterministic shuffle, then this process's shard."""
+        order = np.random.default_rng(self.cfg.seed + epoch).permutation(len(self.entries))
+        return order[self.shard_index :: self.num_shards]
+
+    def _load_one(self, entry: ManifestEntry, rng: np.random.Generator):
+        cfg = self.cfg
+        image_path, depth_path = entry.image_path, entry.gt_path
+        # KITTI --use_right: 50% chance to swap to the right-camera pair
+        # (pytorch/bts_dataloader.py:99-101).
+        if (cfg.dataset == "kitti" and cfg.use_right and entry.right_image_path is not None
+                and rng.random() > 0.5):
+            image_path, depth_path = entry.right_image_path, entry.right_gt_path
+        paths = (os.path.join(cfg.data_path, image_path), os.path.join(cfg.gt_path, depth_path))
+        if cfg.device_augment:
+            # Host: decode, static crops, rotation. Crop, flip, photometric
+            # and normalization run on the card (data/device_augment.py).
+            image, depth = transforms.load_raw_train_sample(
+                *paths, cfg.dataset, rng, do_kb_crop=cfg.do_kb_crop,
+                do_random_rotate=cfg.do_random_rotate, degree=cfg.degree)
+        else:
+            image, depth = transforms.load_train_sample(
+                *paths, cfg.dataset, cfg.input_height, cfg.input_width, rng,
+                do_kb_crop=cfg.do_kb_crop, do_random_rotate=cfg.do_random_rotate,
+                degree=cfg.degree, normalization=self.normalization)
+        return image, depth, np.float32(entry.focal)
+
+    def epoch(self, epoch: int) -> Iterator[dict]:
+        """Yield batches {'image' (B,H,W,3), 'depth' (B,H,W,1), 'focal' (B,)};
+        sample i of the epoch draws from default_rng((seed, epoch, index))."""
+        idx = self._shard_indices(epoch)
+        n = len(idx) // self.host_batch * self.host_batch
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+
+            def submit(i):
+                rng = np.random.default_rng((self.cfg.seed, epoch, int(idx[i])))
+                return pool.submit(self._load_one, self.entries[idx[i]], rng)
+
+            window = self.host_batch * 2  # samples in flight beyond the current batch
+            futures = [submit(i) for i in range(min(window, n))]
+            for start in range(0, n, self.host_batch):
+                results = [f.result() for f in futures[start:start + self.host_batch]]
+                while len(futures) < min(start + self.host_batch + window, n):
+                    futures.append(submit(len(futures)))
+                images, depths, focals = zip(*results)
+                yield {"image": np.stack(images), "depth": np.stack(depths),
+                       "focal": np.stack(focals)}
 
 
 class EvalLoader:

@@ -1,9 +1,18 @@
-"""Host-side eval preprocessing: the eval half of ``bts_tpu/data/transforms.py``.
+"""Host-side image preprocessing: a copy of ``bts_tpu/data/transforms.py``.
 
-The reference eval/test pipeline (pytorch/bts_dataloader.py:140-180):
-decode, /255, depth /1000 (NYU) or /256 (KITTI), the KITTI benchmark crop
-when asked, then the input normalisation. The training augmentations come
-with the training slice.
+Eval/test (pytorch/bts_dataloader.py:140-180): decode, /255, depth /1000
+(NYU) or /256 (KITTI), the KITTI benchmark crop when asked, then the input
+normalisation.
+
+Train (pytorch/bts_dataloader.py:94-235): [use_right swap] -> kb_crop ->
+NYU border crop (43,45,608,472) -> random rotate +-degree (bilinear image,
+nearest depth) -> /255, depth /1000 or /256 -> random crop (h, w) -> random
+h-flip p=0.5 -> photometric augment p=0.5 -> normalize. In raw mode
+(``load_raw_train_sample``, under ``--device_augment``) the host stops after
+the rotation and the rest runs on the card (``data/device_augment.py``).
+
+All randomness flows through an explicit numpy Generator, so the same
+Generator gives the same arrays as ``bts_tpu``'s.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 CAFFE_MEAN = np.array([123.68, 116.78, 103.94], dtype=np.float32)
 CAFFE_SCALE = 0.017
 
+NYU_BORDER_CROP = (43, 45, 608, 472)  # left, top, right, bottom
+
 
 def kb_crop_box(height: int, width: int) -> Tuple[int, int, int, int]:
     """KITTI benchmark crop: bottom-center 1216x352
@@ -32,9 +43,58 @@ def kb_crop_box(height: int, width: int) -> Tuple[int, int, int, int]:
     return (left, top, left + 1216, top + 352)
 
 
+def apply_kb_crop(img: Image.Image) -> Image.Image:
+    return img.crop(kb_crop_box(img.height, img.width))
+
+
 def apply_kb_crop_array(arr: np.ndarray) -> np.ndarray:
     left, top, right, bottom = kb_crop_box(arr.shape[0], arr.shape[1])
     return arr[top:bottom, left:right]
+
+
+def rotate_pair(
+    image: Image.Image, depth: Image.Image, angle: float
+) -> Tuple[Image.Image, Image.Image]:
+    """PIL rotate: bilinear for image, nearest for depth
+    (pytorch/bts_dataloader.py:122-125,187-189)."""
+    return (
+        image.rotate(angle, resample=Image.BILINEAR),
+        depth.rotate(angle, resample=Image.NEAREST),
+    )
+
+
+def random_crop(
+    img: np.ndarray, depth: np.ndarray, height: int, width: int, rng: np.random.Generator
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference random_crop (pytorch/bts_dataloader.py:191-200)."""
+    if img.shape[0] < height or img.shape[1] < width:
+        raise ValueError(f"random_crop: image {img.shape[:2]} smaller than {(height, width)}")
+    x = int(rng.integers(0, img.shape[1] - width + 1))
+    y = int(rng.integers(0, img.shape[0] - height + 1))
+    return img[y:y + height, x:x + width, :], depth[y:y + height, x:x + width, :]
+
+
+def augment_image(image: np.ndarray, dataset: str, rng: np.random.Generator) -> np.ndarray:
+    """Photometric augment (pytorch/bts_dataloader.py:216-235)."""
+    gamma = rng.uniform(0.9, 1.1)
+    image_aug = image**gamma
+    brightness = rng.uniform(0.75, 1.25) if dataset == "nyu" else rng.uniform(0.9, 1.1)
+    image_aug = image_aug * brightness
+    colors = rng.uniform(0.9, 1.1, size=3).astype(np.float32)
+    image_aug = image_aug * colors[None, None, :]
+    return np.clip(image_aug, 0, 1)
+
+
+def train_preprocess(
+    image: np.ndarray, depth_gt: np.ndarray, dataset: str, rng: np.random.Generator
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Random flip + photometric augment (pytorch/bts_dataloader.py:202-214)."""
+    if rng.random() > 0.5:
+        image = image[:, ::-1, :].copy()
+        depth_gt = depth_gt[:, ::-1, :].copy()
+    if rng.random() > 0.5:
+        image = augment_image(image, dataset, rng)
+    return image, depth_gt
 
 
 def normalize_image(image: np.ndarray, style: str = "imagenet") -> np.ndarray:
@@ -100,3 +160,60 @@ def load_eval_sample(
             depth = apply_kb_crop_array(depth)
     image = normalize_image(image, normalization)
     return image.astype(np.float32), depth
+
+
+def _open_train_pair(image_path, depth_path, dataset, rng, do_kb_crop, do_random_rotate, degree):
+    """Decode, the static crops and the host rotation -> (image [0,1] HWC,
+    depth in meters HW1), both f32."""
+    image = Image.open(image_path)
+    depth_gt = Image.open(depth_path)
+    if do_kb_crop:
+        image = apply_kb_crop(image)
+        depth_gt = apply_kb_crop(depth_gt)
+    if dataset == "nyu":
+        image = image.crop(NYU_BORDER_CROP)
+        depth_gt = depth_gt.crop(NYU_BORDER_CROP)
+    if do_random_rotate and rng is not None:
+        angle = (rng.random() - 0.5) * 2 * degree
+        image, depth_gt = rotate_pair(image, depth_gt, angle)
+    image = np.asarray(image, dtype=np.float32) / 255.0
+    depth = decode_depth_png(np.asarray(depth_gt, dtype=np.float32)[..., None], dataset)
+    return image, depth
+
+
+def load_train_sample(
+    image_path: str,
+    depth_path: str,
+    dataset: str,
+    input_height: int,
+    input_width: int,
+    rng: np.random.Generator,
+    do_kb_crop: bool = False,
+    do_random_rotate: bool = False,
+    degree: float = 2.5,
+    normalization: str = "imagenet",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Full reference train-sample pipeline -> (image HWC normed, depth HW1)."""
+    image, depth = _open_train_pair(image_path, depth_path, dataset, rng, do_kb_crop,
+                                    do_random_rotate, degree)
+    image, depth = random_crop(image, depth, input_height, input_width, rng)
+    image, depth = train_preprocess(image, depth, dataset, rng)
+    image = normalize_image(image, normalization)
+    return image.astype(np.float32), depth.astype(np.float32)
+
+
+def load_raw_train_sample(
+    image_path: str,
+    depth_path: str,
+    dataset: str,
+    rng: Optional[np.random.Generator] = None,
+    do_kb_crop: bool = False,
+    do_random_rotate: bool = False,
+    degree: float = 2.5,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode + static crops (+ optional host rotation): the host half of the
+    on-device augmentation. Returns the un-normalized image in [0,1] (HWC) and
+    depth in meters (HW1)."""
+    image, depth = _open_train_pair(image_path, depth_path, dataset, rng, do_kb_crop,
+                                    do_random_rotate, degree)
+    return image.astype(np.float32), depth.astype(np.float32)

@@ -3,9 +3,13 @@
 The sources export plain C functions, so they compile without PyTorch's
 headers (seconds, not minutes). Each source compiles to an object in its own
 nvcc process, all started together; one more nvcc links them into a shared
-library in ``build/kernels/`` at the repository root, named by a hash of the
-sources, the headers they share (``*.cuh``) and the flags. It is built at
-first use in a process. Nothing is built at import.
+library named by a hash of the sources, the headers they share (``*.cuh``)
+and the flags. In a source checkout it goes to ``build/kernels/`` at the
+repository root (git-ignored); an installed package, whose parent directory
+is site-packages, builds into the per-user cache
+(``$XDG_CACHE_HOME/bts_tpu_torch/kernels``, by default
+``~/.cache/bts_tpu_torch/kernels``). It is built at first use in a process.
+Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -18,7 +22,18 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def build_dir(root: Path = Path(__file__).resolve().parents[2]) -> Path:
+    """``build/kernels`` under ``root`` when it is a source checkout (it holds
+    ``pyproject.toml``), else the per-user cache directory."""
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "bts_tpu_torch" / "kernels"
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -112,6 +127,11 @@ def load_library() -> ctypes.CDLL:
         # plane_eq, out, B, H, W, r, inv_scale, out_bf16, stream
         lib.lpg_forward.argtypes = [ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
         lib.lpg_forward.restype = i32
+        # plane_eq, grad, dplane, B, H, W, r, grad strides (b, y, x), inv_scale,
+        # scale, grad_bf16, stream
+        lib.lpg_backward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64,
+                                     ctypes.c_float, i32, i32, ptr]
+        lib.lpg_backward.restype = i32
         strided = [ptr, i64, i64, i64]  # a map's pointer and its (b, h, w) strides
         params = [ptr] * 6  # s1, b1, w1t, s2, b2, w2t (eo: w2qt), K-major
         sizes = [i32] * 6  # B, H, W (eo: U), C, Cmid, G

@@ -20,10 +20,12 @@ VJP (the n4 factor included):
 The decoder scales each full-resolution map by 1/max_depth and casts it to
 its compute dtype; ``local_planar_guidance(..., max_depth, out_dtype)`` does
 both in the same pass (``lpg_scaled_reference`` is the plain composition).
+Its gradient takes the incoming gradient back through the cast and the scale
+in the same pass (``lpg_backward_scaled`` is the plain composition).
 
 Implementations (``impl``, ``bts_tpu``'s names so args files carry over):
-  - ``auto`` / ``pallas``: the CUDA kernel (``ops/lpg_cuda.py``) on a CUDA
-    tensor, the plain version on a CPU tensor;
+  - ``auto`` / ``pallas``: the CUDA kernels (``ops/lpg_cuda.py``, forward
+    and backward) on a CUDA tensor, the plain versions on a CPU tensor;
   - ``xla``: the plain version on any device (for timing and comparison);
   - ``ffi``: not ported (ROADMAP.md queue 2, item 4).
 """
@@ -87,15 +89,28 @@ def lpg_backward(plane_eq: torch.Tensor, grad: torch.Tensor, upratio: int) -> to
     return torch.stack([dn1, dn2, dn3, dn4], dim=-1)
 
 
+def lpg_backward_scaled(
+    plane_eq: torch.Tensor, grad: torch.Tensor, upratio: int, max_depth: Optional[float]
+) -> torch.Tensor:
+    """Plain gradient of the decoder site ``lpg_scaled_reference`` w.r.t.
+    plane_eq: the incoming gradient cast to plane_eq's dtype and divided by
+    ``max_depth`` (unless None), as autograd takes the cast and the scale,
+    then ``lpg_backward``."""
+    grad = grad.to(plane_eq.dtype)
+    if max_depth is not None:
+        grad = grad / max_depth
+    return lpg_backward(plane_eq, grad, upratio)
+
+
 class _LocalPlanarGuidance(torch.autograd.Function):
     """Forward by the kernel or the plain version, scaled by 1/max_depth
-    (unless None) and cast to out_dtype; analytic plain backward (as the
-    Pallas VJP reuses bts_tpu's XLA backward), through the cast and the
-    scale as autograd takes them."""
+    (unless None) and cast to out_dtype; the analytic backward (bts_tpu's
+    VJP, which its Pallas kernel reuses) through the cast and the scale, by
+    the backward kernel where the forward took the kernel."""
 
     @staticmethod
     def forward(ctx, plane_eq, upratio, use_kernel, max_depth, out_dtype):
-        ctx.upratio, ctx.max_depth = upratio, max_depth
+        ctx.upratio, ctx.max_depth, ctx.use_kernel = upratio, max_depth, use_kernel
         ctx.save_for_backward(plane_eq)
         if use_kernel:
             from bts_tpu_torch.ops.lpg_cuda import lpg_cuda
@@ -108,10 +123,13 @@ class _LocalPlanarGuidance(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (plane_eq,) = ctx.saved_tensors
-        grad = grad.to(plane_eq.dtype)
-        if ctx.max_depth is not None:
-            grad = grad / ctx.max_depth
-        return lpg_backward(plane_eq, grad, ctx.upratio), None, None, None, None
+        if ctx.use_kernel:
+            from bts_tpu_torch.ops.lpg_cuda import lpg_backward_cuda
+
+            dplane = lpg_backward_cuda(plane_eq, grad, ctx.upratio, ctx.max_depth)
+        else:
+            dplane = lpg_backward_scaled(plane_eq, grad, ctx.upratio, ctx.max_depth)
+        return dplane, None, None, None, None
 
 
 def check_impl(impl: str) -> None:

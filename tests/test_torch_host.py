@@ -1,6 +1,7 @@
 """The port's copies of bts_tpu's host modules against the originals, on the
-CPU: the Config and its parser, the eval data path (manifest, transforms,
-EvalLoader), colorize and the prediction dump's naming and png writing."""
+CPU: the Config, its parser and its args-file writer, the eval and train
+data paths (manifest, transforms, EvalLoader, TrainLoader), colorize and the
+prediction dump's naming and png writing."""
 
 import dataclasses
 import os
@@ -141,3 +142,92 @@ def test_output_name_and_png_match(tmp_path, dataset, path):
     predict.save_depth_png(str(tmp_path / "got.png"), depth, dataset)
     jpredict.save_depth_png(str(tmp_path / "want.png"), depth, dataset)
     assert (tmp_path / "got.png").read_bytes() == (tmp_path / "want.png").read_bytes()
+
+
+def _train_frames(root, n=6, h=480, w=640):
+    """NYU-style frames at the real size (the border crop needs it)."""
+    rng = np.random.default_rng(12)
+    lines = []
+    for i in range(n):
+        img, gt = f"s1/rgb_{i:05d}.jpg", f"s1/sync_depth_{i:05d}.png"
+        for rel, arr in ((img, rng.integers(0, 255, (h, w, 3), dtype=np.uint8)),
+                         (gt, rng.integers(500, 9000, (h, w), dtype=np.uint16))):
+            os.makedirs(os.path.dirname(root / rel), exist_ok=True)
+            Image.fromarray(arr).save(root / rel)
+        lines.append(f"{img} {gt} 518.8579")
+    manifest = root / "train.txt"
+    manifest.write_text("\n".join(lines) + "\n")
+    return manifest
+
+
+@pytest.mark.parametrize("device_augment", [False, True], ids=["host", "raw"])
+@pytest.mark.parametrize("num_shards", [1, 2])
+def test_train_loader_matches(tmp_path, device_augment, num_shards):
+    manifest = _train_frames(tmp_path)
+    kw = dict(dataset="nyu", data_path=str(tmp_path), gt_path=str(tmp_path),
+              filenames_file=str(manifest), batch_size=2, input_height=96, input_width=128,
+              device_augment=device_augment, do_random_rotate=True, normalization="imagenet",
+              seed=5)
+    for shard in range(num_shards):
+        got = loader.TrainLoader(config.Config(**kw), num_shards, shard)
+        want = jloader.TrainLoader(jconfig.Config(**kw), num_shards, shard)
+        # 6 frames, a global batch of 2: 3 batches of 2, or 3 of 1 a shard.
+        assert got.steps_per_epoch() == want.steps_per_epoch() == 3
+        for epoch in (0, 1):
+            gb, wb = list(got.epoch(epoch)), list(want.epoch(epoch))
+            assert len(gb) == len(wb) == got.steps_per_epoch() > 0
+            for g, w in zip(gb, wb):
+                assert g.keys() == w.keys() == {"image", "depth", "focal"}
+                for k in g:
+                    assert g[k].dtype == w[k].dtype
+                    np.testing.assert_array_equal(g[k], w[k])
+            shape = (427, 565) if device_augment else (96, 128)
+            assert gb[0]["image"].shape[1:3] == shape
+
+
+@pytest.mark.parametrize("dataset", ["nyu", "kitti"])
+def test_host_train_transforms_match(tmp_path, dataset):
+    """rotate_pair, random_crop, augment_image, train_preprocess and the two
+    sample loaders give the same arrays from the same Generator."""
+    _train_frames(tmp_path, n=1)
+    img_path = str(tmp_path / "s1" / "rgb_00000.jpg")
+    gt_path = str(tmp_path / "s1" / "sync_depth_00000.png")
+    pil_i, pil_d = Image.open(img_path), Image.open(gt_path)
+    for a, b in zip(transforms.rotate_pair(pil_i, pil_d, 1.7),
+                    jtransforms.rotate_pair(pil_i, pil_d, 1.7)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    image = np.random.default_rng(1).random((40, 50, 3), dtype=np.float32)
+    depth = np.random.default_rng(2).random((40, 50, 1), dtype=np.float32)
+    for seed in range(4):
+        for fn, args in ((transforms.random_crop, (image, depth, 30, 20)),
+                         (transforms.augment_image, (image, dataset)),
+                         (transforms.train_preprocess, (image, depth, dataset))):
+            jfn = getattr(jtransforms, fn.__name__)
+            got = fn(*args, np.random.default_rng(seed))
+            want = jfn(*args, np.random.default_rng(seed))
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                np.testing.assert_array_equal(g, w)
+    for rotate in (False, True):
+        got = transforms.load_raw_train_sample(img_path, gt_path, dataset,
+                                               np.random.default_rng(3), do_random_rotate=rotate)
+        want = jtransforms.load_raw_train_sample(img_path, gt_path, dataset,
+                                                 np.random.default_rng(3), do_random_rotate=rotate)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        got = transforms.load_train_sample(img_path, gt_path, dataset, 64, 96,
+                                           np.random.default_rng(4), do_random_rotate=rotate,
+                                           normalization="caffe")
+        want = jtransforms.load_train_sample(img_path, gt_path, dataset, 64, 96,
+                                             np.random.default_rng(4), do_random_rotate=rotate,
+                                             normalization="caffe")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_config_to_argfile_matches():
+    cfg = config.parse_args(["--encoder", "densenet121_bts", "--no-fast_tail", "--retrain",
+                             "--learning_rate", "3e-4"])
+    want = jconfig.config_to_argfile(jconfig.Config(**dataclasses.asdict(cfg)))
+    assert config.config_to_argfile(cfg) == want
+    assert config.parse_args(config.config_to_argfile(cfg).split()) == cfg

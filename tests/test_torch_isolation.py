@@ -1,14 +1,20 @@
 """bts_tpu_torch never loads jax, flax or anything of bts_tpu: every slice
 module, and parsing the NYU test args file (whose --checkpoint_path would
-make bts_tpu's Config.validate sniff it through jax-backed modules).
+make bts_tpu's Config.validate sniff it through jax-backed modules). In a
+subprocess, because tests/conftest.py imports jax in this one.
 
-In a subprocess, because tests/conftest.py imports jax in this one.
+Also: an installed package carries every file its kernels' sources include,
+and builds them outside the package's directory.
 """
 
+import fnmatch
 import json
 import os
+import re
 import subprocess
 import sys
+import tomllib
+from pathlib import Path
 
 import pytest
 
@@ -29,6 +35,7 @@ SLICE_MODULES = [
     "bts_tpu_torch.data.manifest",
     "bts_tpu_torch.data.transforms",
     "bts_tpu_torch.data.loader",
+    "bts_tpu_torch.data.device_augment",
     "bts_tpu_torch.utils",
     "bts_tpu_torch.utils.colorize",
     "bts_tpu_torch.models",
@@ -39,7 +46,18 @@ SLICE_MODULES = [
     "bts_tpu_torch.models.convert",
     "bts_tpu_torch.apps.predict",
     "bts_tpu_torch.cli.test",
+    "bts_tpu_torch.cli.train",
+    "bts_tpu_torch.training",
+    "bts_tpu_torch.training.loss",
+    "bts_tpu_torch.training.lr",
+    "bts_tpu_torch.training.optim",
+    "bts_tpu_torch.training.state",
+    "bts_tpu_torch.training.checkpoint",
+    "bts_tpu_torch.training.preempt",
+    "bts_tpu_torch.training.snapshot",
+    "bts_tpu_torch.training.loop",
     "bts_tpu_torch.tools.profile_forward",
+    "bts_tpu_torch.tools.profile_train",
 ]
 
 
@@ -85,3 +103,32 @@ def test_parse_args_device_and_checks(tmp_path):
     (tmp_path / "model.index").write_text("")
     with pytest.raises(NotImplementedError, match="TF checkpoint"):
         parse_args(["--checkpoint_path", str(tmp_path / "model")])
+
+
+def test_every_csrc_include_is_package_data():
+    """Each local ``#include "..."`` under csrc/ matches a package-data glob,
+    so an installed package can build its kernels."""
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["bts_tpu_torch"]
+    csrc = Path(ROOT) / "bts_tpu_torch" / "csrc"
+    shipped = {p.relative_to(csrc.parent).as_posix() for p in csrc.iterdir()
+               if any(fnmatch.fnmatch(p.relative_to(csrc.parent).as_posix(), g) for g in globs)}
+    assert {p.relative_to(csrc.parent).as_posix() for p in csrc.glob("*.cu")} <= shipped
+    includes = {(src.name, name) for src in csrc.iterdir() if src.suffix in (".cu", ".cuh")
+                for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M)}
+    assert includes, "the kernels include a shared header"
+    for src, name in includes:
+        assert f"csrc/{name}" in shipped, f"{src} includes {name}, which is not package data"
+
+
+def test_build_dir_in_a_checkout_and_installed(tmp_path, monkeypatch):
+    from bts_tpu_torch.ops import _build
+
+    assert _build.BUILD_DIR == Path(ROOT) / "build" / "kernels"
+    site = tmp_path / "site-packages"  # an installed package's parent: no pyproject.toml
+    site.mkdir()
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert _build.build_dir(site) == tmp_path / "cache" / "bts_tpu_torch" / "kernels"
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert _build.build_dir(site) == tmp_path / "home" / ".cache" / "bts_tpu_torch" / "kernels"

@@ -152,6 +152,19 @@ def test_kernel_wrapper_refuses_cpu_tensor(rng):
     assert lpg_cuda.LAUNCHES == 0
 
 
+def test_backward_kernel_wrapper_refuses_cpu_tensor_and_cpu_backward_is_plain(rng):
+    """The backward kernel's wrapper raises for a CPU tensor; a CPU tensor's
+    backward takes lpg_backward_scaled, bit for bit, and launches nothing."""
+    pe = torch.from_numpy(_random_plane_eq(rng))
+    g = torch.from_numpy(rng.normal(size=(2, 16, 24)).astype(np.float32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lpg_cuda.lpg_backward_cuda(pe, g, 4, 10.0)
+    p = pe.clone().requires_grad_(True)
+    tlpg.local_planar_guidance(p, 4, max_depth=10.0).backward(g)
+    assert torch.equal(p.grad, tlpg.lpg_backward_scaled(pe, g, 4, 10.0))
+    assert lpg_cuda.BWD_LAUNCHES == 0
+
+
 def test_import_builds_nothing():
     """Importing the kernel modules compiles and loads nothing."""
     code = (

@@ -103,3 +103,35 @@ def test_eo_bound_summed_over_phase3(dtype, ms, by_bytes):
               for h, w, c in cs.densenet161_layer_shapes()]
     assert sum(b for b, _ in bounds) == pytest.approx(ms, abs=5e-6)
     assert [by for _, by in bounds].count("bytes") == by_bytes
+
+
+def test_densenet121_phase3_shapes():
+    """DenseNet121: stem 64, growth 32, blocks (6, 12, 24, 16)."""
+    assert cs.densenet_layer_shapes("densenet121") == [
+        (120, 160, 64), (120, 160, 224), (60, 80, 128), (60, 80, 480),
+        (30, 40, 256), (30, 40, 992), (15, 20, 512), (15, 20, 992),
+    ]
+    assert cs.densenet_layer_shapes("densenet161") == cs.densenet161_layer_shapes()
+
+
+def test_lpg_backward_bound_at_the_train_sites():
+    """Batch 4 at 416x544: the bf16 gradient (4*416*544*2 bytes a site) read
+    once, the planes read and the result written (16 bytes each a cell)."""
+    grad = 3 * 4 * 416 * 544 * 2
+    cells = sum(4 * h * w for _, h, w in cs.TRAIN_SITES)
+    assert cells == 4 * 416 * 544 * (1 / 64 + 1 / 16 + 1 / 4)
+    total = sum(cs.lpg_backward_bound(4, h, w, r, 2)[0] for r, h, w in cs.TRAIN_SITES)
+    assert total == pytest.approx((grad + 32 * cells) / 3.35e12 * 1e3, rel=1e-9)
+    assert total * 1e3 == pytest.approx(4.46, abs=0.01)
+    assert all(cs.lpg_backward_bound(4, h, w, r, 2)[1] == "bytes" for r, h, w in cs.TRAIN_SITES)
+
+
+def test_train_args_drop_only_the_online_eval_lines(tmp_path):
+    path, overrides = cs.train_args(str(tmp_path), str(tmp_path / "d" / "files.txt"),
+                                    str(tmp_path / "logs"))
+    kept = [ln.split()[0] for ln in open(path) if ln.split()]
+    full = [ln.split()[0] for ln in open(os.path.join(ROOT, "configs", "arguments_train_nyu.txt"))
+            if ln.split()]
+    assert kept == [f for f in full if f not in cs.ONLINE_EVAL_FLAGS]
+    assert "--do_online_eval" in full and "--device_augment" in kept
+    assert overrides[overrides.index("--num_epochs") + 1] == "1"
