@@ -190,19 +190,44 @@ extern "C" int lpg_forward(const float* plane_eq, void* out, int B, int H, int W
 //
 // with the n4 factor kept (the reference's own CUDA backward drops it). Every
 // term is computed in the plain composition's order with __fmul_rn /
-// __fadd_rn / __fdiv_rn (no FMA contraction), so each term has the plain
+// __fadd_rn (no FMA contraction) and inv as a correctly rounded reciprocal
+// (__frcp_rn, the bits of the IEEE 1 / den), so each term has the plain
 // version's bits; the four sums are taken in f32 in another order than
-// PyTorch's reductions (row by row across the tile), which is the only
-// difference.
+// PyTorch's reductions, which is the only difference.
 //
 // Bound: bytes. The kernel reads the gradient once (B*H*W*r^2 elements) and
-// the planes once (16 B a cell) and writes 16 B a cell. At the train sites it
-// is a few MB, about a microsecond at 3.35 TB/s, so a launch's floor is the
-// practical limit. Design: one thread per cell; neighbouring threads own
-// neighbouring cells of one cell row, so for each of the r gradient rows the
-// warp reads one contiguous run of 32*r elements (as 16/8/4-byte vectors when
-// the row is contiguous and aligned, else element by element with the given
-// strides). The four sums stay in registers and leave as one float4.
+// the planes once (16 B a cell) and writes 16 B a cell: at the three train
+// sites of a 4x416x544 batch with a bf16 gradient, 4.3 MB read and 1.0 MB
+// written, 4.5 us at 3.35 TB/s, 2.7 us of it at r = 2. At r = 8 a site is
+// only 14k cells, so one thread a cell (the first design) left the card
+// mostly empty: 442 warps, each thread running 64 divides and 8 row loads in
+// turn. This design gives each cell r / ROWS threads, each taking ROWS tile
+// rows:
+// - the grid is 1-D over all B*H*W cells, 256 threads a block; thread t
+//   takes rows [ROWS * (t % TPC), +ROWS) of cell t / TPC (TPC = r / ROWS
+//   threads a cell), so a cell's threads are neighbouring lanes of one warp
+//   and a warp covers 32 / TPC neighbouring cells;
+// - a thread loads each of its rows' r gradient values as one 4/8/16-byte
+//   vector when x is unit-stride and the pointer and strides are aligned
+//   (else element by element with the given strides): the lanes of one tile
+//   row of a warp's cells read one contiguous run;
+// - it keeps partial sums of the four components in registers; a cell's TPC
+//   partials are added by butterfly shuffles (__shfl_xor_sync), and the
+//   lane of row 0 stores the float4;
+// - lanes past the last cell take part in the shuffles with zero sums and
+//   store nothing.
+// - it is launched with programmatic stream serialization (Hopper's
+//   programmatic dependent launch): its blocks may be scheduled while the
+//   kernel before it in the stream still runs, do their index arithmetic,
+//   and wait (griddepcontrol.wait) for that kernel to finish and its
+//   writes to be visible before reading anything. So a launch's latency
+//   overlaps the work before it, autograd's kernels included, which are
+//   not launched that way.
+// ROWS (bwd_rows) is what measured fastest on an H100: 1 at r = 8 (8
+// threads a cell), 2 at r = 4 (2 threads a cell) and 2 at r = 2, where one
+// thread a cell keeps a site to one wave of blocks. A site is small (a few
+// MB), so its time is a launch's latency plus one round trip to memory more
+// than its bytes (PERF.md).
 
 namespace {
 
@@ -237,51 +262,68 @@ __device__ __forceinline__ void load_row(const T* p, int64_t sx, bool vec, float
   }
 }
 
-template <int R, typename T>
-__global__ void lpg_bwd_kernel(const float4* __restrict__ plane_eq, const T* __restrict__ grad,
-                               float4* __restrict__ dplane, int H, int W, int64_t sb, int64_t sy,
-                               int64_t sx, float inv_scale, bool scale, bool vec) {
-  const int cx = blockIdx.y * blockDim.x + threadIdx.x;
-  if (cx >= W) return;
-  const int row = blockIdx.x;  // b * H + cy
-  const int b = row / H, cy = row - b * H;
-  const int64_t cell = static_cast<int64_t>(row) * W + cx;
+// The sub-pixel offset (i - (r-1)/2) / r: a multiple of 1/(2r), exact in f32,
+// so the product with the power of two 1/r has __fdiv_rn's bits.
+template <int R>
+__device__ __forceinline__ float offset(int i) {
+  return __fmul_rn(__fsub_rn(static_cast<float>(i), (R - 1) * 0.5f), 1.0f / R);
+}
 
-  float u[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    u[i] = __fdiv_rn(__fsub_rn(static_cast<float>(i), (R - 1) * 0.5f), static_cast<float>(R));
-  }
-  const float4 n = __ldg(&plane_eq[cell]);
-  float a[R];  // n1 * u[i]
-#pragma unroll
-  for (int i = 0; i < R; ++i) a[i] = __fmul_rn(n.x, u[i]);
+constexpr int BWD_THREADS = 256;
 
-  const T* base = grad + b * sb + static_cast<int64_t>(cy) * R * sy +
-                  static_cast<int64_t>(cx) * R * sx;
+// Tile rows a thread takes at ratio r (r / rows threads a cell).
+constexpr int bwd_rows(int r) { return r == 8 ? 1 : 2; }
+
+template <int R, int ROWS, typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+lpg_bwd_kernel(const float4* __restrict__ plane_eq, const T* __restrict__ grad,
+               float4* __restrict__ dplane, unsigned int H, unsigned int W, unsigned int cells,
+               int64_t sb, int64_t sy, int64_t sx, float inv_scale, bool scale, bool vec) {
+  constexpr int TPC = R / ROWS;  // threads a cell
+  static_assert(32 % TPC == 0, "a cell's threads must lie in one warp");
+  const unsigned int t = blockIdx.x * BWD_THREADS + threadIdx.x;
+  const unsigned int cell = t / TPC;
+  const int j0 = static_cast<int>(t % TPC) * ROWS;  // this thread's first tile row
   float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
+  if (cell < cells) {
+    const unsigned int cx = cell % W, row = cell / W;  // row = b * H + cy
+    const unsigned int cy = row % H, b = row / H;
+    // Programmatic dependent launch: read nothing before the kernel ahead
+    // in the stream has finished and flushed (a no-op without one).
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    const float4 n = __ldg(&plane_eq[cell]);
+    const T* base = grad + static_cast<int64_t>(b) * sb +
+                    (static_cast<int64_t>(cy) * R + j0) * sy + static_cast<int64_t>(cx) * R * sx;
+    float g[ROWS][R];
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    float g[R];
-    load_row<R, T>(base + j * sy, sx, vec, g);
-    const float bj = __fmul_rn(n.y, u[j]);
-    float t1 = 0.f, t3 = 0.f, t4 = 0.f;
+    for (int jj = 0; jj < ROWS; ++jj) load_row<R, T>(base + jj * sy, sx, vec, g[jj]);
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float gi = scale ? __fmul_rn(g[i], inv_scale) : g[i];
-      const float den = __fadd_rn(__fadd_rn(a[i], bj), n.z);
-      const float inv = __fdiv_rn(1.0f, den);
-      const float c = __fmul_rn(__fmul_rn(__fmul_rn(gi, n.w), inv), inv);
-      t1 = __fadd_rn(t1, __fmul_rn(c, u[i]));
-      s2 = __fadd_rn(s2, __fmul_rn(c, u[j]));
-      t3 = __fadd_rn(t3, c);
-      t4 = __fadd_rn(t4, __fmul_rn(gi, inv));
+    for (int jj = 0; jj < ROWS; ++jj) {
+      const float v = offset<R>(j0 + jj);
+      const float bj = __fmul_rn(n.y, v);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float u = offset<R>(i);
+        const float gi = scale ? __fmul_rn(g[jj][i], inv_scale) : g[jj][i];
+        const float den = __fadd_rn(__fadd_rn(__fmul_rn(n.x, u), bj), n.z);
+        const float inv = __frcp_rn(den);
+        const float c = __fmul_rn(__fmul_rn(__fmul_rn(gi, n.w), inv), inv);
+        s1 = __fadd_rn(s1, __fmul_rn(c, u));
+        s2 = __fadd_rn(s2, __fmul_rn(c, v));
+        s3 = __fadd_rn(s3, c);
+        s4 = __fadd_rn(s4, __fmul_rn(gi, inv));
+      }
     }
-    s1 = __fadd_rn(s1, t1);
-    s3 = __fadd_rn(s3, t3);
-    s4 = __fadd_rn(s4, t4);
   }
-  dplane[cell] = make_float4(-s1, -s2, -s3, s4);
+  // Add the partials of each cell's TPC threads: neighbouring lanes of one warp.
+#pragma unroll
+  for (int m = TPC / 2; m > 0; m >>= 1) {
+    s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, m));
+    s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, m));
+    s3 = __fadd_rn(s3, __shfl_xor_sync(0xffffffffu, s3, m));
+    s4 = __fadd_rn(s4, __shfl_xor_sync(0xffffffffu, s4, m));
+  }
+  if (j0 == 0 && cell < cells) dplane[cell] = make_float4(-s1, -s2, -s3, s4);
 }
 
 template <int R, typename T>
@@ -290,10 +332,11 @@ int launch_bwd(const float* plane_eq, const void* grad, float* dplane, int B, in
                cudaStream_t stream) {
   constexpr int BYTES = R * static_cast<int>(sizeof(T));
   constexpr int ALIGN = BYTES >= 16 ? 16 : BYTES;
-  const int64_t rows = static_cast<int64_t>(B) * H;
-  const int threads = W >= 128 ? 128 : (W + 31) / 32 * 32;
-  const int64_t col_blocks = (W + threads - 1) / threads;
-  if (rows > 0x7fffffffLL || col_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int ROWS = bwd_rows(R);
+  const int64_t cells = static_cast<int64_t>(B) * H * W;
+  const int64_t threads = cells * (R / ROWS);
+  if (threads > 0xffffffffLL - BWD_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (threads + BWD_THREADS - 1) / BWD_THREADS;
   const int64_t esize = sizeof(T);
   // Vector loads need each tile row's r values contiguous and every segment
   // aligned to the vector: a unit x stride, and the pointer and both outer
@@ -301,10 +344,21 @@ int launch_bwd(const float* plane_eq, const void* grad, float* dplane, int B, in
   const bool vec = BYTES % 4 == 0 && sx == 1 &&
                    reinterpret_cast<uintptr_t>(grad) % ALIGN == 0 &&
                    (sb * esize) % ALIGN == 0 && (sy * esize) % ALIGN == 0;
-  const dim3 grid(static_cast<unsigned int>(rows), static_cast<unsigned int>(col_blocks));
-  lpg_bwd_kernel<R, T><<<grid, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(plane_eq), static_cast<const T*>(grad),
-      reinterpret_cast<float4*>(dplane), H, W, sb, sy, sx, inv_scale, scale != 0, vec);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(blocks));
+  cfg.blockDim = dim3(BWD_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, lpg_bwd_kernel<R, ROWS, T>, reinterpret_cast<const float4*>(plane_eq),
+      static_cast<const T*>(grad), reinterpret_cast<float4*>(dplane), static_cast<unsigned int>(H),
+      static_cast<unsigned int>(W), static_cast<unsigned int>(cells), sb, sy, sx, inv_scale,
+      scale != 0, vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,15 +83,21 @@ class DenseLayer(nn.Module):
         pack_eo_kmajor(w1, w2q) for eo, pack_taps_kmajor(w1, w2) for taps.
 
         Cached, keyed on every source tensor's storage and version, so
-        load_state_dict, .to(), in-place changes to the BN statistics and a
-        new dtype each compute it afresh. Weights made under
-        ``inference_mode`` have no version counter: they are folded anew on
-        every call.
+        load_state_dict, .to(), in-place changes to the weights (an
+        optimizer step) and a new dtype each compute it afresh. A train-mode
+        forward updates the BN statistics in place without bumping their
+        versions, so the key also holds the versions of both BN modules'
+        ``num_batches_tracked``, which that forward increments. Weights made
+        under ``inference_mode`` have no version counter: they are folded
+        anew on every call.
         """
         src = self._sources()
+        tracked = [n.num_batches_tracked for n in (self.norm1, self.norm2)
+                   if n.num_batches_tracked is not None]
         key = None
-        if not any(t.is_inference() for t in src):
-            key = (dtype, eo) + tuple((t.device, t.data_ptr(), t._version) for t in src)
+        if not any(t.is_inference() for t in (*src, *tracked)):
+            key = (dtype, eo) + tuple((t.device, t.data_ptr(), t._version)
+                                      for t in (*src, *tracked))
             if self._folded is not None and self._folded[0] == key:
                 return self._folded[1]
         with torch.no_grad():

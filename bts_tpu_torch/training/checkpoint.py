@@ -25,13 +25,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from bts_tpu_torch.evaluation.metrics import EVAL_METRICS, NUM_HIGHER_BETTER, NUM_LOWER_BETTER
 from bts_tpu_torch.training.optim import advance_schedule_count, is_port_optimizer_state
 
-# The nine eval metrics, in the reference's order (pytorch/bts_main.py:144-165):
-# the first 6 lower-better, the last 3 higher-better (:514-521).
-EVAL_METRICS = ["silog", "abs_rel", "log10", "rms", "sq_rel", "log_rms", "d1", "d2", "d3"]
-NUM_LOWER_BETTER = 6
-NUM_HIGHER_BETTER = 3
 BEST_KEYS = ("best_eval_measures_lower_better", "best_eval_measures_higher_better",
              "best_eval_steps")
 

@@ -12,11 +12,15 @@ Reference behaviours (pytorch/bts_main.py:322-604):
   * TensorBoard scalars and image panels (:482-496), with tensorboardX when
     it imports;
   * periodic ``model-{step}`` checkpoints (:498-503), pruned to
-    ``max_to_keep``.
+    ``max_to_keep``;
+  * under ``--do_online_eval``, an eval every ``eval_freq`` steps (:505-545)
+    in place of the periodic saves: the nine measures to the console and
+    TensorBoard, and a ``model-{step}-best_{metric}_{value:.5f}`` checkpoint
+    for each metric that improved, its previous best deleted.
 
 The loop reads each step's loss back three steps late, so the host does not
-wait for the card every step. ``--do_online_eval`` (ROADMAP.md queue 1,
-item 11) and more than one device (item 10) are not ported yet.
+wait for the card every step. More than one device (ROADMAP.md queue 1,
+item 10) is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ import numpy as np
 import torch
 
 from bts_tpu_torch.config import Config
-from bts_tpu_torch.data.loader import TrainLoader
+from bts_tpu_torch.data.loader import EvalLoader, TrainLoader
+from bts_tpu_torch.evaluation.metrics import EVAL_METRICS
+from bts_tpu_torch.evaluation.offline import eval_summary_writer
+from bts_tpu_torch.evaluation.online import make_eval_forward, run_online_eval
 from bts_tpu_torch.models.bts import create_model
 from bts_tpu_torch.training import checkpoint as ckpt_lib
 from bts_tpu_torch.training.lr import polynomial_decay_host
@@ -50,17 +57,21 @@ PROFILE_START_STEP = 10
 
 
 class TrainLogger:
-    """TensorBoard scalars and image panels, when tensorboardX imports."""
+    """TensorBoard scalars and image panels, and the eval scalars under
+    ``--do_online_eval``, when tensorboardX imports."""
 
     def __init__(self, cfg: Config, run_dir: str):
         self.cfg = cfg
         self.writer = None
+        self.eval_writer = None
         if run_dir:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
                 return
             self.writer = SummaryWriter(os.path.join(run_dir, "summaries"), flush_secs=30)
+            if cfg.do_online_eval:
+                self.eval_writer = eval_summary_writer(cfg)
 
     def scalars(self, step: int, loss: float, lr: float, var_avg: float):
         if self.writer is not None:
@@ -90,9 +101,16 @@ class TrainLogger:
             w.add_image(f"image/image/{i}", np.clip(img, 0, 1).transpose(2, 0, 1), step)
         self.writer.flush()
 
+    def eval_scalars(self, step: int, measures: np.ndarray):
+        if self.eval_writer is not None:
+            for i, name in enumerate(EVAL_METRICS):
+                self.eval_writer.add_scalar(name, float(measures[i]), step)
+            self.eval_writer.flush()
+
     def close(self):
-        if self.writer is not None:
-            self.writer.close()
+        for w in (self.writer, self.eval_writer):
+            if w is not None:
+                w.close()
 
 
 def param_sum_avg(model: torch.nn.Module) -> float:
@@ -118,11 +136,6 @@ def train(cfg: Config, max_steps: Optional[int] = None,
           device: Optional[torch.device] = None) -> int:
     """Run training on ``device`` (default the CUDA card). Returns the final
     global step, or -1 on a NaN loss (pytorch/bts_main.py:464-466)."""
-    if cfg.do_online_eval:
-        raise NotImplementedError(
-            "--do_online_eval needs the evaluation modules, not ported yet: "
-            "ROADMAP.md queue 1, item 11"
-        )
     if cfg.num_devices > 1:
         raise NotImplementedError(
             f"num_devices {cfg.num_devices}: data parallelism is not ported yet: "
@@ -146,6 +159,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         cfg, TrainState(model, optimizer), ckpt_lib.BestTracker())
     train_step = make_train_step(cfg)
     logger = TrainLogger(cfg, run_dir)
+    eval_loader = EvalLoader(cfg, "online_eval") if cfg.do_online_eval else None
+    eval_forward = make_eval_forward(model, cfg) if cfg.do_online_eval else None
     host_lr = polynomial_decay_host(cfg.learning_rate, cfg.resolved_end_learning_rate,
                                     num_total_steps, power=0.9)
 
@@ -191,6 +206,20 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             if not process_pending(pending.popleft()):
                 return False
         return True
+
+    def evaluate(step: int) -> None:
+        """Online eval at ``step``: the measures logged, and a best
+        checkpoint for each metric that improved (pytorch/bts_main.py:505-545)."""
+        measures = run_online_eval(state.model, cfg, eval_loader, eval_forward)
+        logger.eval_scalars(step, measures)
+        for mi, old_step, old_value in best.update(measures, step):
+            if not run_dir:
+                continue
+            metric = EVAL_METRICS[mi]
+            ckpt_lib.remove_old_best(run_dir, old_step, metric, old_value)
+            name = ckpt_lib.best_checkpoint_name(step, metric, float(measures[mi]))
+            print(f"New best for {metric}. Saving model: {name}")
+            ckpt_lib.save_checkpoint(os.path.join(run_dir, name), state, best)
 
     # Checkpoint and exit cleanly at the next step boundary on SIGTERM.
     preempt_guard = PreemptionGuard(signals=(signal.SIGTERM,) if cfg.preempt_checkpoint else ())
@@ -243,13 +272,19 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 if not pipeline_ok:
                     return finish(-1)
 
-                if global_step % cfg.save_freq == 0 and run_dir:
-                    # Flush the delayed readbacks first so logs stay in step order.
-                    if not drain():
-                        return finish(-1)
+                will_save = (not cfg.do_online_eval and global_step % cfg.save_freq == 0
+                             and run_dir)
+                will_eval = (cfg.do_online_eval and global_step % cfg.eval_freq == 0
+                             and not model_just_loaded)
+                # Flush the delayed readbacks first so logs stay in step order.
+                if (will_save or will_eval) and not drain():
+                    return finish(-1)
+                if will_save:
                     ckpt_lib.save_checkpoint(os.path.join(run_dir, f"model-{global_step}"),
                                              state, best)
                     ckpt_lib.prune_step_checkpoints(run_dir, cfg.max_to_keep)
+                if will_eval:
+                    evaluate(global_step)
 
                 model_just_loaded = False
                 if preempt_guard.requested:

@@ -46,26 +46,46 @@ Phases, in order; any failure raises and the script exits nonzero:
        train sites of a 4x416x544 batch, with f32 and bf16 incoming
        gradients, and ragged cases at r = 2, 4 and 8 with a strided
        gradient (``LPG_BWD_TOL``: the sums run in another order), timed
-       beside the plain version and its bound; the LPG forward timed at the
-       same sites;
+       beside the plain version and its bound, per site and for the three,
+       with a launch's floor (a one-element in-place add) beside them; the
+       LPG forward timed at the same sites;
    (b) one f32 train step (TF32 off) of DenseNet161-BTS at full width on a
        2x416x544 batch, card against CPU: the loss at rtol 1e-4, every
        parameter and BN statistic at atol 1e-4; exactly 3 LPG forward and 3
        LPG backward launches and no fused dense launch;
    (c) the slice's main path: ``bts_tpu_torch.cli.train.main`` with
-       ``configs/arguments_train_nyu.txt`` minus its online-eval lines
-       (DenseNet161-BTS, 416x544, batch 4, bf16, ``--device_augment``,
-       host rotation) over 24 synthetic NYU 480x640 frames for 6 steps, the
-       counts reset just before: finite logged losses, 3 LPG backward
-       launches a step, a ``model-5`` checkpoint, and ``cli.test`` serving
-       pngs from it;
+       ``configs/arguments_train_nyu.txt`` as it is (DenseNet161-BTS,
+       416x544, batch 4, bf16, ``--device_augment``, host rotation, online
+       eval with the eigen crop) over 24 synthetic NYU 480x640 frames for 6
+       steps, its eval split the first 8 of them, evaluated every 3 steps at
+       batch 4, the counts reset just before: finite logged losses, 3 LPG
+       backward launches a step, a ``model-N-best_<metric>_<value>`` file
+       for each of the nine metrics and no ``model-N``;
    (d) the train step's img/s in bf16 at batch 4 and 16 (or the largest of
-       12 and 8 that fits) and in f32 at batch 4, after 3 warm-up steps.
+       12 and 8 that fits) and in f32 at batch 4, after 3 warm-up steps;
+8. eval:
+   (a) ``make_batch_metrics`` on the card against the numpy protocol on the
+       CPU (``METRICS_TOL``), NYU 480x640 with the eigen crop and KITTI
+       352x1216 with the garg crop at batch 8, seeded predictions with inf,
+       nan and out-of-range values and uint16 gt with holes; the gt meters
+       on the card bit for bit;
+   (b) phase 7(c)'s online evals: 78 taps and 3 LPG forward launches a
+       forward and no backward; a fresh model on a best checkpoint gives
+       the measures the loop logged at that step within rtol 1e-5 (a stale
+       fold of the BN statistics or a wrong mode would not);
+   (c) ``cli.eval`` over a run dir holding ``model-3`` and ``model-6``: each
+       evaluated, the ledger written; a second call evaluates nothing.
+       ``cli.test`` from a best checkpoint over the 8 eval frames, and
+       ``cli.eval_with_pngs`` over its pngs: nine finite metrics over 8;
+   (d) ``run_online_eval``'s img/s at 480x640, bf16, batch 8, with the
+       device metrics on and off (host decoding included), and the eval
+       loader's own img/s over the same frames.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
 for f32 taps and f32 eo, from the bf16 eo forward of phase 6 for bf16 eo,
-from phase 7's ``cli.train`` for the LPG backward;
+from phase 7's ``cli.train`` for the LPG backward, with its per-site times
+and the launch floor;
 ``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
 record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
 its own work, ``layer_bound_ms`` the taps form's); the last line is
@@ -78,6 +98,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,10 +127,12 @@ LPG_BWD_REPLACES = "bts_tpu/ops/lpg.py:88"
 # atol 1e-6. Two f32 sums of at most 64 terms each err by at most about
 # 64 * 2^-24 = 3.8e-6 of that sum; the result itself may cancel to near 0.
 LPG_BWD_TOL = dict(rtol=1e-5, atol=1e-6)
-# The args file's online-eval lines (queue 1, item 11 ports online eval).
-ONLINE_EVAL_FLAGS = ("--do_online_eval", "--eval_freq", "--data_path_eval", "--gt_path_eval",
-                     "--filenames_file_eval", "--min_depth_eval", "--max_depth_eval",
-                     "--eigen_crop")
+# Phase 7(c)'s online eval: its frames and the eval every EVAL_FREQ steps at
+# EVAL_BATCH (so one eval is EVAL_FRAMES / EVAL_BATCH forwards).
+EVAL_FRAMES, EVAL_BATCH, EVAL_FREQ = 8, 4, 3
+# Device metrics against the numpy protocol: test_eval_apps.py's bar between
+# f32 device sums and the f64 host path.
+METRICS_TOL = dict(rtol=1e-4, atol=1e-5)
 DENSE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-4, atol=1e-4)}
 # One H100 SXM's published peaks (dense): bf16 tensor cores; f32-accurate
 # products as 3xTF32 on the tensor cores, three TF32 products (494.7 TFLOP/s)
@@ -397,15 +420,26 @@ def lpg_backward_magnitudes(torch, lpg, pe, grad, r, max_depth):
                         c.sum((2, 4)), (gt * inv).abs().sum((2, 4))], dim=-1)
 
 
+def launch_floor_ms(torch):
+    """A launch's floor, timed as the kernels are (``cuda_median_ms``): a
+    one-element in-place add on the card."""
+    one = torch.zeros(1, device="cuda")
+    return cuda_median_ms(lambda: one.add_(1))
+
+
 def check_lpg_train(torch, lpg_cuda, lpg):
     """Phase 7a: the LPG backward kernel against ``lpg_backward_scaled`` at
     the three train sites (batch 4) with f32 and bf16 incoming gradients, and
     ragged cases at r = 2, 4 and 8 with a strided gradient (a channel of a
     wider map); then each train site timed (backward kernel and plain, and
     the forward kernel with bf16 out and its plain version). Returns
-    ({grad dtype name: [max abs err, ms, plain ms, bound ms]}, forward
-    [ms, plain ms, bound ms]), summed over the three sites."""
+    ({grad dtype name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "sites":
+    [{"r", "ms", "bound_ms", "after_add_ms"}, ...]}}, forward [ms, plain ms,
+    bound ms]), summed over the three sites; ``after_add_ms`` times a
+    one-element add and then the kernel, as autograd launches it after
+    another kernel."""
     gen = torch.Generator().manual_seed(6)
+    one = torch.zeros(1, device="cuda")
     cases = [(r, TRAIN_BATCH, h, w, False) for r, h, w in TRAIN_SITES]
     cases += [(r, 3, 5, 7, True) for r in (8, 4, 2)]
     bwd, fwd = {}, [0.0, 0.0, 0.0]
@@ -439,12 +473,21 @@ def check_lpg_train(torch, lpg_cuda, lpg):
                 continue
             k = cuda_median_ms(lambda: lpg_cuda.lpg_backward_cuda(pe, grad, r, MAX_DEPTH))
             p = cuda_median_ms(lambda: lpg.lpg_backward_scaled(pe, grad, r, MAX_DEPTH))
+            # As autograd launches it: right after another PyTorch kernel.
+            a = cuda_median_ms(lambda: (one.add_(1),
+                                        lpg_cuda.lpg_backward_cuda(pe, grad, r, MAX_DEPTH)))
             bound = lpg_backward_bound(b, h, w, r, dt.itemsize)[0]
             print(f"lpg backward {where}: max abs err {err.max().item()!r} (largest error / "
                   f"terms' magnitude {share!r}), kernel {k!r} ms, plain {p!r} ms (median of 50 "
-                  f"samples of 10 calls); bound {bound * 1e3!r} us by bytes, {bound / k:.2%} of it")
-            acc = bwd.setdefault(name, [0.0, 0.0, 0.0, 0.0])
-            bwd[name] = [max(acc[0], err.max().item()), acc[1] + k, acc[2] + p, acc[3] + bound]
+                  f"samples of 10 calls); bound {bound * 1e3!r} us by bytes, {bound / k:.2%} of "
+                  f"it; a one-element add then the kernel {a!r} ms")
+            acc = bwd.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                        "bound_ms": 0.0, "sites": []})
+            acc["max_abs_err"] = max(acc["max_abs_err"], err.max().item())
+            acc["ms"] += k
+            acc["plain_ms"] += p
+            acc["bound_ms"] += bound
+            acc["sites"].append({"r": r, "ms": k, "bound_ms": bound, "after_add_ms": a})
         if i < len(TRAIN_SITES):
             k = cuda_median_ms(lambda: lpg_cuda.lpg_cuda(pe, r, MAX_DEPTH, torch.bfloat16))
             p = cuda_median_ms(lambda: lpg.lpg_scaled_reference(pe, r, MAX_DEPTH, torch.bfloat16))
@@ -516,6 +559,117 @@ def write_nyu_frames(root, n=8, h=480, w=640):
     return manifest
 
 
+def write_manifest_head(manifest, name, n):
+    """A manifest of the first ``n`` lines of ``manifest``, beside it."""
+    with open(manifest) as f:
+        lines = f.readlines()[:n]
+    path = os.path.join(os.path.dirname(manifest), name)
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path
+
+
+BEST_NAME = re.compile(r"model-(\d+)-best_(\w+?)_(-?[0-9.]+)$")
+
+
+def best_checkpoints(run_dir):
+    """{metric: [(step, path), ...] by step} of the run's
+    ``model-{step}-best_{metric}_{value:.5f}`` files."""
+    out = {}
+    for name in sorted(os.listdir(run_dir)):
+        m = BEST_NAME.match(name)
+        if m:
+            out.setdefault(m.group(2), []).append((int(m.group(1)), os.path.join(run_dir, name)))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def check_device_metrics(torch, Config, device_eval, compute_errors, prepare_pred_gt):
+    """Phase 8(a): ``make_batch_metrics`` on the card against the numpy
+    protocol on the CPU, NYU 480x640 with the eigen crop and KITTI 352x1216
+    with the garg crop, batch 8: seeded predictions with inf, nan and
+    out-of-range values, seeded uint16 gt with zero holes. The meters on the
+    card equal ``gt.astype(f32) / scale`` bit for bit; the mean measures
+    within METRICS_TOL. Each batch's call (upload, metrics, the 10-number
+    readback) timed on the host clock."""
+    for dataset, h, w, crop in (("nyu", 480, 640, "eigen_crop"), ("kitti", 352, 1216, "garg_crop")):
+        rng = np.random.default_rng(11)
+        max_d = 10.0 if dataset == "nyu" else 80.0
+        scale = device_eval.gt_scale(dataset)
+        pred = rng.uniform(0.05, 1.2 * max_d, (8, h, w)).astype(np.float32)
+        for value in (np.inf, -np.inf, np.nan, 0.0, -1.0, 1e4):
+            pred.reshape(-1)[rng.integers(0, pred.size, 2000)] = value
+        gt = rng.integers(1, int(max_d * scale), (8, h, w)).astype(np.uint16)
+        gt[rng.random((8, h, w)) < 0.3] = 0
+        meters = gt.astype(np.float32) / np.float32(scale)
+        on_card = device_eval.upload_gt(gt, dataset, torch.device("cuda")).cpu().numpy()
+        if not np.array_equal(on_card.view(np.uint32), meters.view(np.uint32)):
+            raise RuntimeError(f"{dataset}: the gt meters on the card differ from numpy's")
+        cfg = Config(dataset=dataset, min_depth_eval=1e-3, max_depth_eval=max_d, **{crop: True})
+        batch_metrics = device_eval.make_batch_metrics(cfg)
+        weights = np.ones(8, np.float32)
+        preds = torch.from_numpy(pred).cuda()
+        sums, count = batch_metrics(preds, gt, weights)
+        host, n = np.zeros(9), 0
+        for i in range(8):
+            p, g, m = prepare_pred_gt(pred[i], meters[i], 1e-3, max_d, dataset, **{crop: True})
+            if m.any():
+                host += compute_errors(g[m], p[m])
+                n += 1
+        if count != n:
+            raise RuntimeError(f"{dataset}: device counted {count} images, numpy {n}")
+        np.testing.assert_allclose(sums / count, host / n, **METRICS_TOL)
+        rel = np.max(np.abs(sums / count - host / n) / np.abs(host / n).clip(1e-30))
+        batch_metrics(preds, gt, weights)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            batch_metrics(preds, gt, weights)
+        ms = (time.perf_counter() - t0) * 100
+        print(f"device metrics {dataset} 8x{h}x{w} {crop}: within rtol "
+              f"{METRICS_TOL['rtol']}, atol {METRICS_TOL['atol']} of numpy (max rel diff "
+              f"{float(rel)!r}); gt meters bit for bit; {ms!r} ms a batch on the host clock "
+              f"(upload, metrics, readback)")
+
+
+NYU_TEST_FRAMES = 654  # lines of train_test_inputs/nyudepthv2_test_files_with_gt.txt
+
+
+def eval_throughput(model, cfg, manifest, run_online_eval, EvalLoader, batch=8):
+    """Phase 8(d): run_online_eval's img/s over an eval split the size of
+    NYU's (NYU_TEST_FRAMES lines, the frames of ``manifest`` at 480x640 in
+    turn) at ``batch`` in bf16, with the device metrics on and off, in turns
+    (on, off, off, on) after a warm-up over ``manifest`` itself; host clock
+    around each run, which decodes every JPEG and PNG on the host. Beside
+    them, the loader's own img/s over the same split (decoding and
+    normalising the same batches, no forward) and its share of an eval's
+    wall time with the device metrics on."""
+    with open(manifest) as f:
+        lines = f.readlines()
+    split = os.path.join(os.path.dirname(manifest), "eval_split.txt")
+    with open(split, "w") as f:
+        f.writelines(lines[i % len(lines)] for i in range(NYU_TEST_FRAMES))
+    cfg = cfg.replace(filenames_file_eval=manifest, eval_batch_size=batch,
+                      compute_dtype="bfloat16")
+    run_online_eval(model, cfg, verbose=False)
+    cfg = cfg.replace(filenames_file_eval=split)
+    runs = []
+    for device_eval in (True, False, False, True):
+        t0 = time.perf_counter()
+        measures = run_online_eval(model, cfg.replace(device_eval=device_eval), verbose=False)
+        runs.append((device_eval, NYU_TEST_FRAMES / (time.perf_counter() - t0)))
+        if measures is None or not np.isfinite(measures).all():
+            raise RuntimeError(f"eval over {NYU_TEST_FRAMES} frames: {measures}")
+    rates = {f"device_eval_{'on' if on else 'off'}": statistics.mean(r for d, r in runs if d == on)
+             for on in (True, False)}
+    t0 = time.perf_counter()
+    n = sum(int(b["weight"].sum()) for b in EvalLoader(cfg, "online_eval").batches())
+    if n != NYU_TEST_FRAMES:
+        raise RuntimeError(f"the EvalLoader gave {n} of {NYU_TEST_FRAMES} frames")
+    rates["loader_only"] = n / (time.perf_counter() - t0)
+    return rates, {"frames": NYU_TEST_FRAMES, "distinct_frames": len(lines),
+                   "runs": [{"device_eval": d, "img_per_s": r} for d, r in runs],
+                   "loader_share_of_eval_wall": rates["device_eval_on"] / rates["loader_only"]}
+
+
 class Tee:
     """Writes to several streams (the console and a capture)."""
 
@@ -532,20 +686,19 @@ class Tee:
             st.flush()
 
 
-def train_args(root, manifest, log_dir):
-    """``configs/arguments_train_nyu.txt`` minus its online-eval lines, with
-    this run's data, one epoch, a save within the run and a log every 3
-    steps: (path of the args file written under ``root``, overrides)."""
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                           "arguments_train_nyu.txt")) as f:
-        lines = [ln for ln in f if ln.split() and ln.split()[0] not in ONLINE_EVAL_FLAGS]
-    path = os.path.join(root, "arguments_train_nyu.txt")
-    with open(path, "w") as f:
-        f.writelines(lines)
+def train_args(manifest, eval_manifest, log_dir):
+    """``configs/arguments_train_nyu.txt`` as it is, online-eval lines kept,
+    with this run's data and eval split, one epoch, an eval every EVAL_FREQ
+    steps at batch EVAL_BATCH and a log every 3 steps: (path of the args
+    file, overrides)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                        "arguments_train_nyu.txt")
     data = os.path.dirname(manifest)
     return path, ["--data_path", data, "--gt_path", data, "--filenames_file", manifest,
-                  "--log_directory", log_dir, "--num_epochs", "1", "--save_freq", "5",
-                  "--log_freq", "3"]
+                  "--data_path_eval", data, "--gt_path_eval", data,
+                  "--filenames_file_eval", eval_manifest, "--log_directory", log_dir,
+                  "--num_epochs", "1", "--eval_freq", str(EVAL_FREQ),
+                  "--eval_batch_size", str(EVAL_BATCH), "--log_freq", "3"]
 
 
 STEP_LINE = re.compile(r"\[epoch\]\[s/s_per_e/gs\]: \[\d+\]\[\d+/\d+/(\d+)\], lr: (\S+), "
@@ -618,12 +771,23 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    from bts_tpu_torch.cli import eval as cli_eval
+    from bts_tpu_torch.cli import eval_with_pngs as cli_eval_with_pngs
     from bts_tpu_torch.cli import test as cli_test
     from bts_tpu_torch.cli import train as cli_train
-    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.config import Config, parse_args
+    from bts_tpu_torch.data.loader import EvalLoader
+    from bts_tpu_torch.evaluation import device_eval
+    from bts_tpu_torch.evaluation.metrics import EVAL_METRICS, compute_errors
+    from bts_tpu_torch.evaluation.offline import read_ledger
+    from bts_tpu_torch.evaluation.online import run_online_eval
+    from bts_tpu_torch.evaluation.protocol import prepare_pred_gt
     from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models.convert import load_checkpoint
     from bts_tpu_torch.models.encoders.densenet import DenseLayer
     from bts_tpu_torch.ops import _build, fused_dense, fused_dense_cuda, lpg, lpg_cuda
+    from bts_tpu_torch.training import loop as train_loop
+    from bts_tpu_torch.training.checkpoint import list_step_checkpoints
     from bts_tpu_torch.training.optim import create_optimizer
     from bts_tpu_torch.training.state import TrainState, make_train_step
 
@@ -795,75 +959,82 @@ def main():
 
     phase("7 train: LPG backward kernel, train step against the CPU, cli.train, img/s")
     lpg_bwd, lpg_fwd_train = check_lpg_train(torch, lpg_cuda, lpg)
-    for name, (err, k, p, bound) in lpg_bwd.items():
+    floor = launch_floor_ms(torch)
+    for name, r in lpg_bwd.items():
+        k, bound = r["ms"], r["bound_ms"]
         print(f"lpg backward, grad {name}, three train sites at B={TRAIN_BATCH}: kernel {k!r} ms, "
-              f"plain {p!r} ms, bound {bound!r} ms by bytes ({bound / k:.2%}), max_abs_err {err!r}")
+              f"plain {r['plain_ms']!r} ms, bound {bound!r} ms by bytes ({bound / k:.2%}), three "
+              f"launch floors {3 * floor!r} ms, max_abs_err {r['max_abs_err']!r}")
+    print(f"launch floor (a one-element in-place add, median of 50 samples of 10 calls): "
+          f"{floor!r} ms ({smi})")
     print(f"lpg forward, bf16 out, three train sites at B={TRAIN_BATCH}: kernel "
           f"{lpg_fwd_train[0]!r} ms, plain {lpg_fwd_train[1]!r} ms, bound {lpg_fwd_train[2]!r} ms")
     train_step_card_against_cpu(torch, Config, create_model, create_optimizer, TrainState,
                                 make_train_step, reset_counts, counts)
 
-    # The slice's main path: bts_tpu_torch.cli.train.main at full width, then
-    # cli.test serving from the checkpoint it wrote.
+    # The slice's main path: bts_tpu_torch.cli.train.main at full width on the
+    # recipe, its online eval included. Phase 8 reads what it wrote; its
+    # directory lives until then.
     train_steps = 6
-    with tempfile.TemporaryDirectory() as tmp:
-        manifest = write_nyu_frames(os.path.join(tmp, "data"), TRAIN_BATCH * train_steps)
-        log_dir = os.path.join(tmp, "logs")
-        args_path, overrides = train_args(tmp, manifest, log_dir)
-        capture = io.StringIO()
-        os.chdir(tmp)
-        try:
-            reset_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
-                rc = cli_train.main(["@" + args_path, *overrides])
-            torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t0
-            train_path = counts()
-        finally:
-            os.chdir(cwd)
-        if rc != 0:
-            raise RuntimeError(f"cli.train.main returned {rc}")
-        steps = [(int(gs), float(loss)) for gs, _, loss in STEP_LINE.findall(capture.getvalue())]
-        if [gs for gs, _ in steps] != list(range(1, train_steps + 1)):
-            raise RuntimeError(f"cli.train logged steps {steps}, expected 1..{train_steps}")
-        if not all(math.isfinite(loss) for _, loss in steps):
-            raise RuntimeError(f"cli.train logged a non-finite loss: {steps}")
-        if train_path["lpg_backward"] != 3 * train_steps or train_path["lpg"] < 3 * train_steps:
-            raise RuntimeError(f"cli.train: kernel launches {train_path}, expected 3 LPG "
-                               f"backward and at least 3 LPG forward launches a step")
-        run_dir = os.path.join(log_dir, "bts_nyu_v2_tpu")
-        ckpt = os.path.join(run_dir, "model-5")
-        if not os.path.isfile(ckpt):
-            raise RuntimeError(f"cli.train wrote no {ckpt}: {sorted(os.listdir(run_dir))}")
-        print(f"cli.train: {train_steps} steps at batch {TRAIN_BATCH} (bf16, device_augment), "
-              f"losses {[loss for _, loss in steps]!r}, kernel launches {train_path}, "
-              f"{elapsed:.1f} s including model build; wrote {sorted(os.listdir(run_dir))}")
-        with open(manifest) as f:
-            frames = f.readlines()[:TRAIN_BATCH]
-        test_manifest = os.path.join(tmp, "data", "test.txt")
-        with open(test_manifest, "w") as f:
-            f.writelines(frames)
-        os.chdir(tmp)
-        try:
-            rc = cli_test.main([
-                "--encoder", "densenet161_bts", "--dataset", "nyu", "--max_depth", "10",
-                "--compute_dtype", "bfloat16", "--eval_batch_size", str(TRAIN_BATCH),
-                "--data_path", os.path.join(tmp, "data"), "--filenames_file", test_manifest,
-                "--model_name", "chip_smoke_trained", "--checkpoint_path", ckpt])
-        finally:
-            os.chdir(cwd)
-        if rc != 0:
-            raise RuntimeError(f"cli.test from {ckpt} returned {rc}")
-        raw = os.path.join(tmp, "result_chip_smoke_trained", "raw")
-        pngs = sorted(os.listdir(raw))
-        for p in pngs:
-            a = np.asarray(Image.open(os.path.join(raw, p)))
-            if a.dtype != np.uint16 or a.shape != (480, 640) or a.max() == 0:
-                raise RuntimeError(f"{p}: {a.dtype} {a.shape} max {a.max()}")
-        if len(pngs) != len(frames):
-            raise RuntimeError(f"cli.test from {ckpt}: {pngs}")
-        print(f"cli.test served {len(pngs)} uint16 480x640 pngs from {os.path.basename(ckpt)}")
+    train_tmp = tempfile.TemporaryDirectory()
+    tmp = train_tmp.name
+    data = os.path.join(tmp, "data")
+    manifest = write_nyu_frames(data, TRAIN_BATCH * train_steps)
+    eval_manifest = write_manifest_head(manifest, "eval.txt", EVAL_FRAMES)
+    log_dir = os.path.join(tmp, "logs")
+    args_path, overrides = train_args(manifest, eval_manifest, log_dir)
+    # Each online eval's forwards, kernel launches and measures, as the loop
+    # calls run_online_eval.
+    evals = []
+    real_eval = train_loop.run_online_eval
+
+    def counted_eval(model, cfg, loader, forward):
+        calls = []
+
+        def fwd(image, focal):
+            calls.append(1)
+            return forward(image, focal)
+
+        before = counts()
+        measures = real_eval(model, cfg, loader, fwd)
+        evals.append((len(calls), {k: v - before[k] for k, v in counts().items()}, measures))
+        return measures
+
+    capture = io.StringIO()
+    os.chdir(tmp)
+    train_loop.run_online_eval = counted_eval
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
+            rc = cli_train.main(["@" + args_path, *overrides])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        train_path = counts()
+    finally:
+        train_loop.run_online_eval = real_eval
+        os.chdir(cwd)
+    if rc != 0:
+        raise RuntimeError(f"cli.train.main returned {rc}")
+    steps = [(int(gs), float(loss)) for gs, _, loss in STEP_LINE.findall(capture.getvalue())]
+    if [gs for gs, _ in steps] != list(range(1, train_steps + 1)):
+        raise RuntimeError(f"cli.train logged steps {steps}, expected 1..{train_steps}")
+    if not all(math.isfinite(loss) for _, loss in steps):
+        raise RuntimeError(f"cli.train logged a non-finite loss: {steps}")
+    eval_forwards = sum(f for f, _, _ in evals)
+    if (train_path["lpg_backward"] != 3 * train_steps
+            or train_path["lpg"] < 3 * (train_steps + eval_forwards)):
+        raise RuntimeError(f"cli.train: kernel launches {train_path}, expected 3 LPG backward a "
+                           f"step and at least 3 LPG forward a step and an eval forward")
+    run_dir = os.path.join(log_dir, "bts_nyu_v2_tpu")
+    best = best_checkpoints(run_dir)
+    if sorted(best) != sorted(EVAL_METRICS) or list_step_checkpoints(run_dir):
+        raise RuntimeError(f"cli.train --do_online_eval wrote {sorted(os.listdir(run_dir))}: "
+                           "expected a best checkpoint per metric and no model-N")
+    print(f"cli.train: {train_steps} steps at batch {TRAIN_BATCH} (bf16, device_augment), "
+          f"losses {[loss for _, loss in steps]!r}, {len(evals)} online evals, kernel launches "
+          f"{train_path}, {elapsed:.1f} s including model build; wrote "
+          f"{sorted(os.listdir(run_dir))}")
 
     # Train img/s (warm-up steps left out). Batch 16 is BENCH_TRAIN_r05.json's;
     # where it does not fit, the largest of 12 and 8 that does.
@@ -886,6 +1057,111 @@ def main():
         else:
             raise RuntimeError(f"train step: no batch of {batches} fits")
     print(json.dumps({"train_img_per_s": train_rates, "device": smi}))
+
+    phase("8 eval: device metrics, cli.train's online eval, cli.eval, cli.eval_with_pngs, img/s")
+    check_device_metrics(torch, Config, device_eval, compute_errors, prepare_pred_gt)
+
+    # (b) cli.train's online evals: each forward 78 taps and 3 LPG launches,
+    # no backward; a fresh model on a best checkpoint gives the logged measures.
+    fwd_per_eval = math.ceil(EVAL_FRAMES / EVAL_BATCH)
+    per_eval = {"taps": DENSE_LAYERS * fwd_per_eval, "eo": 0, "lpg": 3 * fwd_per_eval,
+                "lpg_backward": 0}
+    if len(evals) != train_steps // EVAL_FREQ:
+        raise RuntimeError(f"cli.train ran {len(evals)} online evals, expected "
+                           f"{train_steps // EVAL_FREQ}")
+    for forwards, launched, measures in evals:
+        if forwards != fwd_per_eval or launched != per_eval or not np.isfinite(measures).all():
+            raise RuntimeError(f"online eval: {forwards} forwards, launches {launched} (expected "
+                               f"{fwd_per_eval} and {per_eval}), measures {measures}")
+    eval_cfg = parse_args(["@" + args_path, *overrides])
+    step, ckpt = best["d1"][-1]
+    fresh = create_model(eval_cfg).cuda()
+    fresh.load_state_dict(load_checkpoint(ckpt), strict=True)
+    reset_counts()
+    got = run_online_eval(fresh, eval_cfg, verbose=False)
+    if counts() != per_eval:
+        raise RuntimeError(f"online eval of a fresh model: launches {counts()}, expected {per_eval}")
+    logged = evals[step // EVAL_FREQ - 1][2]
+    np.testing.assert_allclose(got, logged, rtol=1e-5, atol=0)
+    print(f"online eval in cli.train: {len(evals)} evals of {fwd_per_eval} forwards, launches "
+          f"{per_eval} each; a fresh model on {os.path.basename(ckpt)} gives {got.tolist()!r}, "
+          f"the loop logged {logged.tolist()!r} at step {step} (max rel diff "
+          f"{float(np.max(np.abs(got - logged) / np.abs(logged).clip(1e-30)))!r})")
+
+    # (c) cli.eval over a run dir of model-N files (no code snapshot), twice;
+    # cli.test from a best checkpoint, then cli.eval_with_pngs over its pngs.
+    eval_logs = os.path.join(tmp, "eval_logs")
+    eval_run = os.path.join(eval_logs, "evalrun")
+    os.makedirs(eval_run)
+    by_step = {s: p for paths in best.values() for s, p in paths}
+    past = time.time() - 120  # older than the maturity guard's 60 s
+    for i, s in enumerate((EVAL_FREQ, 2 * EVAL_FREQ)):
+        dst = os.path.join(eval_run, f"model-{s}")
+        shutil.copyfile(by_step.get(s, ckpt), dst)
+        os.utime(dst, (past, past))
+    eval_argv = ["@" + args_path, *overrides, "--log_directory", eval_logs,
+                 "--model_name", "evalrun"]
+    launched = []
+    for _ in range(2):
+        reset_counts()
+        capture = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
+            rc = cli_eval.main(eval_argv)
+        launched.append((counts(), capture.getvalue().count(
+            f"Computing errors for {EVAL_FRAMES} eval samples")))
+        if rc != 0:
+            raise RuntimeError(f"cli.eval returned {rc}")
+    ledger = read_ledger(eval_run)
+    twice = {k: 2 * v for k, v in per_eval.items()}
+    if ledger != [EVAL_FREQ, 2 * EVAL_FREQ] or launched != [(twice, 2), (dict.fromkeys(twice, 0), 0)]:
+        raise RuntimeError(f"cli.eval: ledger {ledger}, launches and tables {launched}")
+    print(f"cli.eval: evaluated model-{EVAL_FREQ} and model-{2 * EVAL_FREQ} (launches "
+          f"{launched[0][0]}), ledger {ledger}; a second call evaluated nothing")
+
+    os.chdir(tmp)
+    try:
+        rc = cli_test.main([
+            "--encoder", "densenet161_bts", "--dataset", "nyu", "--max_depth", "10",
+            "--compute_dtype", "bfloat16", "--eval_batch_size", str(EVAL_BATCH),
+            "--data_path", data, "--filenames_file", eval_manifest,
+            "--model_name", "chip_smoke_trained", "--checkpoint_path", ckpt])
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise RuntimeError(f"cli.test from {ckpt} returned {rc}")
+    raw = os.path.join(tmp, "result_chip_smoke_trained", "raw")
+    pngs = sorted(os.listdir(raw))
+    for p in pngs:
+        a = np.asarray(Image.open(os.path.join(raw, p)))
+        if a.dtype != np.uint16 or a.shape != (480, 640) or a.max() == 0:
+            raise RuntimeError(f"{p}: {a.dtype} {a.shape} max {a.max()}")
+    if len(pngs) != EVAL_FRAMES:
+        raise RuntimeError(f"cli.test from {ckpt}: {pngs}")
+    capture = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
+        rc = cli_eval_with_pngs.main(["--pred_path", raw, "--gt_path", data, "--dataset", "nyu",
+                                      "--min_depth_eval", "1e-3", "--max_depth_eval", "10",
+                                      "--eigen_crop"])
+    table = re.search(r"Computing errors for (\d+) eval samples\n.*\n(.*)\n", capture.getvalue())
+    values = [float(v) for v in table.group(2).split(",")] if table else []
+    if rc != 0 or int(table.group(1)) != EVAL_FRAMES or len(values) != 9 or not all(
+            math.isfinite(v) for v in values):
+        raise RuntimeError(f"cli.eval_with_pngs: {capture.getvalue()!r}")
+    print(f"cli.test served {len(pngs)} uint16 480x640 pngs from {os.path.basename(ckpt)}; "
+          f"cli.eval_with_pngs scored {EVAL_FRAMES}: {values!r}")
+
+    # (d) Eval img/s, host decoding included.
+    eval_rates, eval_info = eval_throughput(fresh, eval_cfg, manifest, run_online_eval,
+                                            EvalLoader)
+    for key, rate in eval_rates.items():
+        print(f"online eval 480x640 bf16 batch 8 over {NYU_TEST_FRAMES} frames, {key}: {rate!r} "
+              f"img/s (host JPEG/PNG decoding {'alone' if key == 'loader_only' else 'and the card'}"
+              f"; {smi})")
+    print(f"the loader's share of an eval's wall time (device metrics on): "
+          f"{eval_info['loader_share_of_eval_wall']!r}")
+    print(json.dumps({"eval_img_per_s": eval_rates, **eval_info, "device": smi}))
+    del fresh
+    train_tmp.cleanup()
 
     if "jax" in sys.modules or "flax" in sys.modules:
         raise RuntimeError("jax was imported")
@@ -926,9 +1202,8 @@ def main():
         {"name": "lpg_backward", "route": "cuda", "source": LPG_SOURCE,
          "replaces": LPG_BWD_REPLACES, "grad_dtype": "bfloat16",
          "launches": train_path["lpg_backward"], "launches_per_step": 3,
-         **dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"), lpg_bwd["bfloat16"])),
-         "bound_by": "bytes", "library_ms": None,
-         "float32": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"), lpg_bwd["float32"]))},
+         **lpg_bwd["bfloat16"], "bound_by": "bytes", "library_ms": None,
+         "launch_floor_ms": floor, "float32": lpg_bwd["float32"]},
         dense_record("taps", "bfloat16", serving, forwards),
         dense_record("taps", "float32", f32_path["taps"], 1),
         dense_record("eo", "bfloat16", eo_path, 1),

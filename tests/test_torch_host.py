@@ -231,3 +231,92 @@ def test_config_to_argfile_matches():
     want = jconfig.config_to_argfile(jconfig.Config(**dataclasses.asdict(cfg)))
     assert config.config_to_argfile(cfg) == want
     assert config.parse_args(config.config_to_argfile(cfg).split()) == cfg
+
+
+# ------------------------------------------------------------ eval copies
+
+
+def _protocol_inputs(seed, h, w, max_d):
+    """A seeded prediction with inf, nan and out-of-range values, and gt in
+    meters with zero holes."""
+    rng = np.random.default_rng(seed)
+    pred = rng.uniform(-1, max_d * 1.3, (h, w)).astype(np.float32)
+    pred.reshape(-1)[rng.integers(0, h * w, 30)] = np.inf
+    pred.reshape(-1)[rng.integers(0, h * w, 30)] = np.nan
+    gt = rng.uniform(0, max_d, (h, w)).astype(np.float32)
+    gt[rng.random((h, w)) < 0.2] = 0
+    return pred, gt
+
+
+@pytest.mark.parametrize("dataset,h,w,crops", [
+    ("nyu", 480, 640, dict(eigen_crop=True)),
+    ("nyu", 48, 64, {}),
+    ("kitti", 375, 1242, dict(garg_crop=True, do_kb_crop=True)),
+    ("kitti", 352, 1216, dict(eigen_crop=True)),
+])
+def test_eval_protocol_matches(dataset, h, w, crops):
+    """clamp_prediction, kb_crop_reembed, eval_mask and prepare_pred_gt (a
+    352x1216 prediction re-embedded into a larger KITTI gt), and
+    compute_errors on the result, bit for bit."""
+    from bts_tpu.evaluation import metrics as jmetrics
+    from bts_tpu.evaluation import protocol as jprotocol
+    from bts_tpu_torch.evaluation import metrics, protocol
+
+    max_d = 10.0 if dataset == "nyu" else 80.0
+    pred, gt = _protocol_inputs(h + w, h, w, max_d)
+    if crops.get("do_kb_crop"):
+        pred = pred[:352, :1216]
+        np.testing.assert_array_equal(protocol.kb_crop_reembed(pred, h, w),
+                                      jprotocol.kb_crop_reembed(pred, h, w))
+    np.testing.assert_array_equal(protocol.clamp_prediction(pred, 1e-3, max_d),
+                                  jprotocol.clamp_prediction(pred, 1e-3, max_d))
+    mask_kw = {k: v for k, v in crops.items() if k != "do_kb_crop"}
+    np.testing.assert_array_equal(protocol.eval_mask(gt, 1e-3, max_d, dataset, **mask_kw),
+                                  jprotocol.eval_mask(gt, 1e-3, max_d, dataset, **mask_kw))
+    got = protocol.prepare_pred_gt(pred, gt, 1e-3, max_d, dataset, **crops)
+    want = jprotocol.prepare_pred_gt(pred, gt, 1e-3, max_d, dataset, **crops)
+    for g, wv in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, wv)
+    p, g, m = got
+    np.testing.assert_array_equal(metrics.compute_errors(g[m], p[m]),
+                                  jmetrics.compute_errors(g[m], p[m]))
+    assert metrics.EVAL_METRICS == jmetrics.EVAL_METRICS
+    assert (metrics.NUM_LOWER_BETTER, metrics.NUM_HIGHER_BETTER) == (
+        jmetrics.NUM_LOWER_BETTER, jmetrics.NUM_HIGHER_BETTER)
+
+
+@pytest.mark.parametrize("dataset", ["nyu", "kitti"])
+def test_pack_gt_batch_matches(dataset):
+    """A batch with a missing gt, a weight-0 sample and a mismatched shape."""
+    from bts_tpu.evaluation import device_eval as jdevice
+    from bts_tpu_torch.evaluation import device_eval
+
+    scale = 1000.0 if dataset == "nyu" else 256.0
+    rng = np.random.default_rng(9)
+    depths = [(rng.integers(0, 20000, (12, 16, 1)) / scale).astype(np.float32) for _ in range(3)]
+    depths += [None, (rng.integers(0, 20000, (10, 16, 1)) / scale).astype(np.float32)]
+    weights = [1.0, 0.0, 1.0, 1.0, 1.0]
+    for pred_shape in (None, (12, 16)):
+        with pytest.warns(UserWarning, match="cannot ride the batched"):
+            got = device_eval.pack_gt_batch(depths, weights, dataset, pred_shape)
+        with pytest.warns(UserWarning, match="cannot ride the batched"):
+            want = jdevice.pack_gt_batch(depths, weights, dataset, pred_shape)
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g, w)
+        assert got[0].dtype == want[0].dtype == np.uint16 and got[2] == [4]
+
+
+@pytest.mark.parametrize("dataset,name", [
+    ("nyu", "/p/kitchen_0001_rgb_00003.png"),
+    ("nyu", "/p/bathroom_0042_rgb_00017.jpg"),
+    ("nyu", "/p/depth_00003.png"),
+    ("kitti", "/p/2011_09_26_drive_0002_sync_0000000005.png"),
+    ("kitti", "/p/x.png"),
+])
+def test_gt_path_for_pred_matches(dataset, name):
+    from bts_tpu.evaluation import png_eval as jpng
+    from bts_tpu_torch.evaluation import png_eval
+
+    kw = dict(dataset=dataset, gt_path="/gt")
+    assert png_eval.gt_path_for_pred(name, config.Config(**kw)) == jpng.gt_path_for_pred(
+        name, jconfig.Config(**kw))

@@ -56,6 +56,17 @@ SLICE_MODULES = [
     "bts_tpu_torch.training.preempt",
     "bts_tpu_torch.training.snapshot",
     "bts_tpu_torch.training.loop",
+    "bts_tpu_torch.evaluation",
+    "bts_tpu_torch.evaluation.metrics",
+    "bts_tpu_torch.evaluation.protocol",
+    "bts_tpu_torch.evaluation.png_eval",
+    "bts_tpu_torch.evaluation.device_eval",
+    "bts_tpu_torch.evaluation.online",
+    "bts_tpu_torch.evaluation.offline",
+    "bts_tpu_torch.evaluation.schedule",
+    "bts_tpu_torch.cli.eval",
+    "bts_tpu_torch.cli.eval_with_pngs",
+    "bts_tpu_torch.cli.eval_schedule",
     "bts_tpu_torch.tools.profile_forward",
     "bts_tpu_torch.tools.profile_train",
 ]

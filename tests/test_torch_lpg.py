@@ -165,6 +165,74 @@ def test_backward_kernel_wrapper_refuses_cpu_tensor_and_cpu_backward_is_plain(rn
     assert lpg_cuda.BWD_LAUNCHES == 0
 
 
+def _emulate_backward_kernel(pe, grad, r, rows, inv_scale):
+    """csrc/lpg.cu's lpg_bwd_kernel in numpy f32: thread t of the 1-D grid
+    takes tile rows [rows * (t % tpc), +rows) of cell t // tpc (tpc = r /
+    rows), reads them through the gradient's element strides, keeps its four
+    partial sums in the kernel's order, and the cell's tpc partials are added
+    by the butterfly (xor m = tpc/2 .. 1); lane 0's sums are the result."""
+    f32 = np.float32
+    b, h, w, _ = pe.shape
+    tpc = r // rows
+    sb, sy, sx = (st // grad.itemsize for st in grad.strides)
+    extent = 1 + sum((d - 1) * st for d, st in zip(grad.shape, (sb, sy, sx)))
+    flat = np.lib.stride_tricks.as_strided(grad, (extent,), (grad.itemsize,))  # its memory
+    cells = b * h * w
+    t = np.arange(cells * tpc)
+    cell, j0 = t // tpc, (t % tpc) * rows
+    cx, row = cell % w, cell // w
+    cy, bb = row % h, row // h
+    n = pe.reshape(-1, 4)[cell]
+    offset = lambda i: (f32(i) - f32((r - 1) * 0.5)) * f32(1.0 / r)  # noqa: E731
+    base = bb * sb + (cy * r + j0) * sy + cx * r * sx
+    s = np.zeros((4, t.size), f32)
+    for jj in range(rows):
+        v = offset(j0 + jj).astype(f32)
+        bj = n[:, 1] * v
+        for i in range(r):
+            u = offset(i)
+            gi = flat[base + jj * sy + i * sx].astype(f32) * f32(inv_scale)
+            den = (n[:, 0] * u + bj) + n[:, 2]
+            inv = f32(1) / den
+            c = ((gi * n[:, 3]) * inv) * inv
+            s += np.stack([c * u, c * v, c, gi * inv])
+    s = s.reshape(4, cells, tpc)
+    m = tpc // 2
+    while m:
+        s = s + s[:, :, np.arange(tpc) ^ m]
+        m //= 2
+    return np.stack([-s[0, :, 0], -s[1, :, 0], -s[2, :, 0], s[3, :, 0]], -1).reshape(b, h, w, 4)
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_backward_kernel_mapping_emulated(rng, r, rows):
+    """The backward kernel's thread mapping and summation order, emulated on
+    a strided gradient (a channel of a wider map, ragged 3x5x7 cells),
+    against lpg_backward_scaled: each component within rtol 1e-5 of the sum
+    of its terms' magnitudes plus atol 1e-6 (chip_smoke.py's LPG_BWD_TOL:
+    only the order of the f32 sums differs). The sub-pixel offset's product
+    with 1/r has the division's bits for every r and i."""
+    for i in range(r):
+        assert np.float32(i - (r - 1) * 0.5) * np.float32(1 / r) == np.float32(
+            np.float32(i - (r - 1) * 0.5) / np.float32(r))
+    pe = _random_plane_eq(rng, 3, 5, 7)
+    wide = rng.normal(size=(3, 4, 5 * r, 7 * r)).astype(np.float32)
+    grad = wide[:, 2]
+    inv = lpg_cuda.inv_scale(10.0)
+    got = _emulate_backward_kernel(pe, grad, r, rows, inv)
+    want = tlpg.lpg_backward_scaled(torch.from_numpy(pe), torch.from_numpy(grad.copy()), r,
+                                    10.0).numpy()
+    pe64, g64 = pe.astype(np.float64), grad.astype(np.float64).reshape(3, 5, r, 7, r) * inv
+    u = (np.arange(r) - (r - 1) / 2) / r
+    den = (pe64[..., 0][:, :, None, :, None] * u + pe64[..., 1][:, :, None, :, None]
+           * u[:, None, None] + pe64[..., 2][:, :, None, :, None])
+    c = np.abs(g64 * pe64[..., 3][:, :, None, :, None] / den**2)
+    scale = np.stack([(c * np.abs(u)).sum((2, 4)), (c * np.abs(u)[:, None, None]).sum((2, 4)),
+                      c.sum((2, 4)), np.abs(g64 / den).sum((2, 4))], -1)
+    assert np.all(np.abs(got - want) <= 1e-6 + 1e-5 * scale)
+
+
 def test_import_builds_nothing():
     """Importing the kernel modules compiles and loads nothing."""
     code = (

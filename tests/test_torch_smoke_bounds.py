@@ -5,6 +5,7 @@ work (the ``bound_ms`` of its JSON line)."""
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,11 +128,62 @@ def test_lpg_backward_bound_at_the_train_sites():
 
 
 def test_train_args_drop_only_the_online_eval_lines(tmp_path):
-    path, overrides = cs.train_args(str(tmp_path), str(tmp_path / "d" / "files.txt"),
+    """Phase 7(c) runs the NYU recipe as it is, --do_online_eval and
+    --eigen_crop included, with the eval split pointed at the run's frames:
+    an eval every 3 steps at batch 4."""
+    from bts_tpu_torch.config import parse_args
+
+    data = tmp_path / "d"
+    path, overrides = cs.train_args(str(data / "files.txt"), str(data / "eval.txt"),
                                     str(tmp_path / "logs"))
-    kept = [ln.split()[0] for ln in open(path) if ln.split()]
-    full = [ln.split()[0] for ln in open(os.path.join(ROOT, "configs", "arguments_train_nyu.txt"))
-            if ln.split()]
-    assert kept == [f for f in full if f not in cs.ONLINE_EVAL_FLAGS]
-    assert "--do_online_eval" in full and "--device_augment" in kept
-    assert overrides[overrides.index("--num_epochs") + 1] == "1"
+    assert path == os.path.join(ROOT, "configs", "arguments_train_nyu.txt")
+    cfg = parse_args(["@" + path, *overrides])
+    assert cfg.do_online_eval and cfg.eigen_crop and cfg.device_augment
+    assert (cfg.data_path_eval, cfg.gt_path_eval, cfg.filenames_file_eval) == (
+        str(data), str(data), str(data / "eval.txt"))
+    assert (cfg.eval_freq, cfg.eval_batch_size, cfg.num_epochs) == (cs.EVAL_FREQ, cs.EVAL_BATCH, 1)
+    assert (cfg.min_depth_eval, cfg.max_depth_eval, cfg.compute_dtype) == (1e-3, 10.0, "bfloat16")
+
+
+def test_best_checkpoints_read_the_loops_names(tmp_path):
+    """Phase 7(c) finds each metric's best file by the loop's own naming."""
+    from bts_tpu_torch.training.checkpoint import best_checkpoint_name
+
+    names = [best_checkpoint_name(3, "silog", 69.963491), best_checkpoint_name(6, "d1", 0.3216),
+             best_checkpoint_name(3, "log_rms", 0.82111), best_checkpoint_name(6, "silog", 9.5),
+             "model-6", "model-6.123.tmp", "arguments.txt"]
+    for name in names:
+        (tmp_path / name).write_bytes(b"x")
+    best = cs.best_checkpoints(str(tmp_path))
+    assert sorted(best) == ["d1", "log_rms", "silog"]
+    assert [s for s, _ in best["silog"]] == [3, 6]
+    assert best["log_rms"] == [(3, str(tmp_path / "model-3-best_log_rms_0.82111"))]
+
+
+def test_eval_throughput_times_a_split_the_size_of_nyus(tmp_path):
+    """Phase 8(d) warms up on the given frames, then times four evals and the
+    loader over NYU_TEST_FRAMES lines (the NYU eval split's count), each
+    frame counted once."""
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.data.loader import EvalLoader
+
+    with open(os.path.join(ROOT, "train_test_inputs", "nyudepthv2_test_files_with_gt.txt")) as f:
+        assert sum(1 for _ in f) == cs.NYU_TEST_FRAMES
+    manifest = cs.write_nyu_frames(str(tmp_path), n=3, h=24, w=32)
+    cfg = Config(dataset="nyu", data_path_eval=str(tmp_path), gt_path_eval=str(tmp_path),
+                 min_depth_eval=1e-3, max_depth_eval=10.0, device_eval=True)
+    seen = []
+
+    def run_online_eval(model, cfg, verbose):
+        with open(cfg.filenames_file_eval) as f:
+            seen.append((len(f.readlines()), cfg.device_eval, cfg.eval_batch_size,
+                         cfg.compute_dtype))
+        return np.ones(9)
+
+    rates, info = cs.eval_throughput(None, cfg, manifest, run_online_eval, EvalLoader)
+    n = cs.NYU_TEST_FRAMES
+    assert seen == [(3, True, 8, "bfloat16"), (n, True, 8, "bfloat16"), (n, False, 8, "bfloat16"),
+                    (n, False, 8, "bfloat16"), (n, True, 8, "bfloat16")]
+    assert sorted(rates) == ["device_eval_off", "device_eval_on", "loader_only"]
+    assert (info["frames"], info["distinct_frames"], len(info["runs"])) == (n, 3, 4)
+    assert info["loader_share_of_eval_wall"] == rates["device_eval_on"] / rates["loader_only"]

@@ -173,8 +173,7 @@ def test_train_loop_aborts_on_nan(tiny_encoder, tmp_path, monkeypatch, capsys):
     assert "NaN in loss occurred. Aborting training." in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,item", [({"do_online_eval": True}, "item 11"),
-                                       ({"num_devices": 4}, "item 10")])
+@pytest.mark.parametrize("flag,item", [({"num_devices": 4}, "item 10")])
 def test_train_refuses_what_is_not_ported(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         train(Config(**flag), device=torch.device("cpu"))
