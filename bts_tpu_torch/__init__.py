@@ -4,16 +4,17 @@ training and evaluation paths.
 The module layout mirrors ``bts_tpu`` so each module's counterpart is found
 under the same name: ``config``, ``ops.lpg`` (with the hand-written CUDA LPG
 kernels in ``csrc/lpg.cu``), ``ops.fused_dense``,
-``models.{layers,decoder,bts,convert}``, ``models.encoders.densenet``,
-``data``, ``training``, ``evaluation``, ``apps.predict`` and
-``cli.{test,train,eval,eval_with_pngs,eval_schedule}``.
+``models.{layers,decoder,bts,convert}``,
+``models.encoders.{densenet,resnet,mobilenet}``, ``data``, ``training``,
+``evaluation``, ``apps.{predict,sequence,live3d,live3d_gl}`` and
+``cli.{test,train,eval,eval_with_pngs,eval_schedule,sequence,live3d,avg_checkpoints}``.
 
 Tensors are NCHW inside the models; the LPG functions keep ``bts_tpu``'s
 ``(B, H, W, 4)`` plane-equation layout. The package imports ``torch`` and
 never ``jax``, and nothing of ``bts_tpu``: the host modules it needs
 (``config``, ``data.{manifest,transforms,loader}``, ``utils.colorize``,
-``apps.predict``'s png helpers, ``evaluation.{protocol,png_eval}``) are its
-own copies.
+``apps.predict``'s png helpers, ``evaluation.{protocol,png_eval}``, the
+numpy parts of ``apps.{live3d,live3d_gl}``) are its own copies.
 """
 
 __version__ = "0.1.0"

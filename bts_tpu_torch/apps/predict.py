@@ -41,7 +41,7 @@ def save_depth_png(path: str, depth: np.ndarray, dataset: str):
     Image.fromarray(scaled.astype(np.uint16)).save(path)
 
 
-def _compute_context(cfg: Config, device: torch.device):
+def compute_context(cfg: Config, device: torch.device):
     if cfg.compute_dtype == "bfloat16":
         return torch.autocast(device.type, dtype=torch.bfloat16)
     if cfg.compute_dtype != "float32":
@@ -87,7 +87,7 @@ def run_predictions(cfg: Config, device: torch.device) -> str:
     for batch in loader.batches():
         image = torch.from_numpy(batch["image"]).permute(0, 3, 1, 2).to(device)
         focal = torch.from_numpy(batch["focal"]).to(device)
-        with torch.inference_mode(), _compute_context(cfg, device):
+        with torch.inference_mode(), compute_context(cfg, device):
             outs = forward_padded(model, image, focal)
         lpg8, lpg4, lpg2, reduc1, depth = [o[:, 0].cpu().numpy() for o in outs]
         if not np.isfinite(depth).all():

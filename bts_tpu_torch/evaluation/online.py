@@ -23,7 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from bts_tpu_torch.apps.predict import _compute_context, forward_padded
+from bts_tpu_torch.apps.predict import compute_context, forward_padded
 from bts_tpu_torch.config import Config
 from bts_tpu_torch.data.loader import EvalLoader
 from bts_tpu_torch.evaluation.metrics import EVAL_METRICS, compute_errors
@@ -42,7 +42,7 @@ def make_eval_forward(model: torch.nn.Module, cfg: Config) -> Callable:
         modes = [(m, m.training) for m in model.modules()]
         model.eval()
         try:
-            with torch.no_grad(), _compute_context(cfg, device):
+            with torch.no_grad(), compute_context(cfg, device):
                 x = torch.from_numpy(np.ascontiguousarray(image)).permute(0, 3, 1, 2).to(device)
                 f = torch.from_numpy(np.asarray(focal, np.float32)).to(device)
                 depth = forward_padded(model, x, f)[4][:, 0]

@@ -1,4 +1,4 @@
-"""The full BTS model: DenseNet encoder + decoder.
+"""The full BTS model: encoder zoo + decoder.
 
 Port of ``bts_tpu/models/bts.py``. Module names follow the reference
 PyTorch model (``encoder.base_model.*``, ``decoder.*``), so reference
@@ -14,13 +14,17 @@ import torch
 from torch import nn
 
 from bts_tpu_torch.models.decoder import BTSDecoder
-from bts_tpu_torch.models.encoders import densenet
+from bts_tpu_torch.models.encoders import densenet, mobilenet, resnet
 
-# name -> (factory, feat_out_channels). The ResNet, ResNeXt and MobileNet
-# encoders of bts_tpu are ROADMAP.md queue 1, item 13.
+# name -> (factory, feat_out_channels), as bts_tpu's (pytorch/bts.py:273-301).
 ENCODERS = {
     "densenet121_bts": (densenet.densenet121, [64, 64, 128, 256, 1024]),
     "densenet161_bts": (densenet.densenet161, [96, 96, 192, 384, 2208]),
+    "resnet50_bts": (resnet.resnet50, [64, 256, 512, 1024, 2048]),
+    "resnet101_bts": (resnet.resnet101, [64, 256, 512, 1024, 2048]),
+    "resnext50_bts": (resnet.resnext50, [64, 256, 512, 1024, 2048]),
+    "resnext101_bts": (resnet.resnext101, [64, 256, 512, 1024, 2048]),
+    "mobilenetv2_bts": (mobilenet.mobilenetv2, [16, 24, 32, 64, 1280]),
 }
 
 
@@ -28,9 +32,11 @@ class BTSModel(nn.Module):
     """image (B,3,H,W) normalized, focal (B,) -> (lpg8x8, lpg4x4, lpg2x2,
     reduc1x1, depth_est), each (B,1,H,W) float32.
 
-    The encoder's ``dense_impl`` (``encoders/densenet.py``) is ``auto``: an
-    inference forward on a card runs the dense layers through the fused
-    kernel."""
+    A DenseNet encoder's ``dense_impl`` (``encoders/densenet.py``) is
+    ``auto``: an inference forward on a card runs the dense layers through
+    the fused kernel. The ResNet, ResNeXt and MobileNetV2 encoders are cuDNN
+    convs throughout; every encoder's forward reaches the LPG kernel at the
+    decoder's three sites."""
 
     def __init__(
         self,
@@ -55,7 +61,8 @@ class BTSModel(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded init, as bts_tpu's: Xavier-uniform conv kernels (the port's
     convs have no bias), BN scale 1, bias 0, running mean 0, running var 1.
-    Draws on the CPU generator."""
+    Draws on the CPU generator. A grouped conv's fans count its in-channels
+    per group (``weight.shape[1]``), as flax's over its grouped kernel."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             o, i, kh, kw = m.weight.shape
@@ -68,12 +75,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def check_encoder(name: str) -> None:
-    """Raise unless ``name`` is an encoder the port has."""
+    """Raise unless ``name`` is an encoder of the zoo."""
     if name not in ENCODERS:
-        raise NotImplementedError(
-            f"encoder {name!r} is not ported yet (ported: {sorted(ENCODERS)}): "
-            "ROADMAP.md queue 1, item 13"
-        )
+        raise ValueError(f"unknown encoder {name!r}; options: {sorted(ENCODERS)}")
 
 
 def create_model(cfg) -> BTSModel:

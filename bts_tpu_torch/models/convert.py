@@ -3,16 +3,19 @@
 The port's module names are the reference PyTorch names, so a reference
 checkpoint is already a state dict of this model (``load_checkpoint``).
 ``state_dict_from_flax`` maps ``bts_tpu``'s param/batch_stats trees onto
-those names. The key mapping is a copy of the DenseNet and decoder part of
-``bts_tpu/models/convert.py`` (``_torch_key``), because importing that
-module loads flax through ``bts_tpu/models/__init__.py``.
+those names. The key mapping is a copy of ``bts_tpu/models/convert.py``'s
+(``_torch_key`` with its ResNet renames, and the MobileNetV2 table of
+``_full_mobilenet_key``), because importing that module loads flax through
+``bts_tpu/models/__init__.py``.
 
-Layout: flax kernel (kh, kw, I, O) -> torch weight (O, I, kh, kw); BN
-scale/bias/mean/var -> weight/bias/running_mean/running_var.
+Layout: flax kernel (kh, kw, I/groups, O) -> torch weight (O, I/groups, kh,
+kw), grouped and depthwise kernels too; BN scale/bias/mean/var ->
+weight/bias/running_mean/running_var.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -68,6 +71,51 @@ def _decoder_key(parts, leaf: str, leaf_shape) -> str:
     raise KeyError(f"unknown decoder module: {parts}")
 
 
+def _encoder_key(parts) -> str:
+    """ResNet block names to torchvision's; DenseNet names pass as they are."""
+    out = []
+    for p in parts:
+        m = re.fullmatch(r"layer(\d+)_(\d+)", p)
+        if m:
+            out.append(f"layer{m.group(1)}.{m.group(2)}")
+        else:
+            out.append({"downsample_conv": "downsample.0",
+                        "downsample_bn": "downsample.1"}.get(p, p))
+    return ".".join(out)
+
+
+# MobileNetV2 inverted residuals: (submodule, shim) -> the torchvision path
+# under features.N, with and without the expand conv (only features_1 has
+# expand ratio 1).
+_MOBILENET_EXPAND = {
+    ("expand", "conv"): "conv.0.0",
+    ("expand", "bn"): "conv.0.1",
+    ("depthwise", "conv"): "conv.1.0",
+    ("depthwise", "bn"): "conv.1.1",
+    ("project", "conv"): "conv.2",
+    ("project_bn", "bn"): "conv.3",
+}
+_MOBILENET_NO_EXPAND = {
+    ("depthwise", "conv"): "conv.0.0",
+    ("depthwise", "bn"): "conv.0.1",
+    ("project", "conv"): "conv.1",
+    ("project_bn", "bn"): "conv.2",
+}
+
+
+def _mobilenet_key(path: Tuple[str, ...], leaf: str) -> str:
+    """(encoder, features_N, ...) -> torchvision ``features`` naming:
+    features_0/conv/conv -> 0.0, features_18/bn/bn -> 18.1,
+    features_2/expand/conv/conv -> 2.conv.0.0, features_2/project/conv ->
+    2.conv.2, ..."""
+    idx = int(path[1].split("_")[1])
+    sub = path[2]
+    if sub in ("conv", "bn"):  # the stem and the head ConvBNReLU6
+        return f"encoder.base_model.{idx}.{0 if sub == 'conv' else 1}.{leaf}"
+    table = _MOBILENET_EXPAND if idx >= 2 else _MOBILENET_NO_EXPAND
+    return f"encoder.base_model.{idx}.{table[sub, path[3]]}.{leaf}"
+
+
 def torch_key(path: Tuple[str, ...], leaf_shape) -> str:
     """bts_tpu flax param path -> reference torch state-dict key.
 
@@ -75,9 +123,11 @@ def torch_key(path: Tuple[str, ...], leaf_shape) -> str:
     'conv'/'bn' (path[-2]); the torch module path is everything above it.
     """
     leaf = _LEAF_RENAME[path[-1]]
+    if len(path) > 1 and path[1].startswith("features_"):
+        return _mobilenet_key(path, leaf)
     scope, rest = path[0], list(path[1:-2])
     if scope == "encoder":
-        return "encoder.base_model." + ".".join(rest) + "." + leaf
+        return "encoder.base_model." + _encoder_key(rest) + "." + leaf
     if scope == "decoder":
         return "decoder." + _decoder_key(rest, leaf, leaf_shape)
     raise KeyError(f"unknown scope for {path}")
@@ -100,10 +150,26 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, tor
     return state
 
 
+# Keys a reference checkpoint carries that the port's model has not: the
+# ResNet family's classifier, which the reference wraps and never calls
+# (pytorch/bts.py:281-296,303-318).
+REFERENCE_ONLY = ("encoder.base_model.fc.",)
+
+
+def model_state(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference or port state dict as the port's model names it: the DDP
+    'module.' prefix stripped and the REFERENCE_ONLY keys dropped."""
+    out = {}
+    for k, v in state.items():
+        k = k.removeprefix("module.")
+        if not k.startswith(REFERENCE_ONLY):
+            out[k] = v
+    return out
+
+
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """Read a reference or port ``.pth`` (a torch.save dict with a 'model'
-    key, or a bare state dict) -> state dict, DDP 'module.' prefix stripped.
+    key, or a bare state dict) -> the model's state dict (``model_state``).
     Loads tensors only (``weights_only``), on the CPU."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    state = ckpt.get("model", ckpt)
-    return {k.removeprefix("module."): v for k, v in state.items()}
+    return model_state(ckpt.get("model", ckpt))

@@ -33,7 +33,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from bts_tpu_torch.models.layers import ENCODER_BN_EPS, TORCH_BN_MOMENTUM_ENCODER
+from bts_tpu_torch.models.layers import encoder_bn
 from bts_tpu_torch.ops.fused_dense import (
     fold_bn,
     fused_dense_layer,
@@ -47,20 +47,16 @@ DENSE_IMPLS = ("auto", "taps", "eo", "plain")
 SKIP_NAMES = ("relu0", "pool0", "transition1", "transition2", "norm5")
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=ENCODER_BN_EPS, momentum=TORCH_BN_MOMENTUM_ENCODER)
-
-
 class DenseLayer(nn.Module):
     """BN -> ReLU -> 1x1 conv(4g) -> BN -> ReLU -> 3x3 conv(g)."""
 
     def __init__(self, in_features: int, growth_rate: int, bn_size: int = 4):
         super().__init__()
         mid = bn_size * growth_rate
-        self.norm1 = _bn(in_features)
+        self.norm1 = encoder_bn(in_features)
         self.relu1 = nn.ReLU()
         self.conv1 = nn.Conv2d(in_features, mid, 1, bias=False)
-        self.norm2 = _bn(mid)
+        self.norm2 = encoder_bn(mid)
         self.relu2 = nn.ReLU()
         self.conv2 = nn.Conv2d(mid, growth_rate, 3, padding=1, bias=False)
 
@@ -164,7 +160,7 @@ class Transition(nn.Sequential):
     def __init__(self, in_features: int, out_features: int):
         super().__init__(
             OrderedDict(
-                norm=_bn(in_features),
+                norm=encoder_bn(in_features),
                 relu=nn.ReLU(),
                 conv=nn.Conv2d(in_features, out_features, 1, bias=False),
                 pool=nn.AvgPool2d(2, stride=2),
@@ -185,7 +181,7 @@ class DenseNetEncoder(nn.Module):
         super().__init__()
         mods = OrderedDict(
             conv0=nn.Conv2d(3, num_init_features, 7, stride=2, padding=3, bias=False),
-            norm0=_bn(num_init_features),
+            norm0=encoder_bn(num_init_features),
             relu0=nn.ReLU(),
             pool0=nn.MaxPool2d(3, stride=2, padding=1),
         )
@@ -196,7 +192,7 @@ class DenseNetEncoder(nn.Module):
             if i != len(block_config) - 1:
                 mods[f"transition{i + 1}"] = Transition(c, c // 2)
                 c //= 2
-        mods["norm5"] = _bn(c)
+        mods["norm5"] = encoder_bn(c)
         self.base_model = nn.Sequential(mods)
         self.dense_impl = dense_impl
 

@@ -22,6 +22,10 @@ def decoder_bn(channels: int, eps: float = DECODER_BN_EPS) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels, eps=eps, momentum=TORCH_BN_MOMENTUM_DECODER)
 
 
+def encoder_bn(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=ENCODER_BN_EPS, momentum=TORCH_BN_MOMENTUM_ENCODER)
+
+
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Nearest upsample by an integer factor, NCHW: out[i] = in[i // k]."""
     b, c, h, w = x.shape

@@ -12,8 +12,9 @@ resume: weights, optimizer state, step, best tracker) and the reference's
 the optimizer starts fresh with its LR schedule advanced to the restored
 step (``advance_schedule_count``). ``--retrain`` restarts the step and the
 LR. An orbax directory and a TF prefix are refused by ``config.parse_args``
-(ROADMAP.md queue 1, items 5 and 14). Averaging checkpoints waits for the
-avg CLI (ROADMAP.md queue 1, item 12).
+(ROADMAP.md queue 1, items 5 and 14). ``average_checkpoints`` and
+``save_params_only`` make an inference checkpoint of several
+(``cli/avg_checkpoints.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from bts_tpu_torch.evaluation.metrics import EVAL_METRICS, NUM_HIGHER_BETTER, NUM_LOWER_BETTER
+from bts_tpu_torch.models.convert import model_state
 from bts_tpu_torch.training.optim import advance_schedule_count, is_port_optimizer_state
 
 BEST_KEYS = ("best_eval_measures_lower_better", "best_eval_measures_higher_better",
@@ -106,7 +108,9 @@ def _numpy_globals():
 
 def load_checkpoint_dict(path: str) -> Dict[str, Any]:
     """Read a checkpoint file on the CPU: the port's or a reference trainer's
-    (whose best_eval_steps may be a numpy array), or a bare state dict."""
+    (whose best_eval_steps may be a numpy array), or a bare state dict. Its
+    ``model`` is the model's state dict (``convert.model_state``: no DDP
+    prefix, no reference-only keys)."""
     if not os.path.isfile(path):
         raise FileNotFoundError(
             f"No checkpoint at '{path}'. Expected a .pth file saved by this port "
@@ -116,8 +120,37 @@ def load_checkpoint_dict(path: str) -> Dict[str, Any]:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(ckpt, dict) and "model" in ckpt):
         ckpt = {"model": ckpt}
-    ckpt["model"] = {k.removeprefix("module."): v for k, v in ckpt["model"].items()}
+    ckpt["model"] = model_state(ckpt["model"])
     return ckpt
+
+
+def average_checkpoints(paths) -> Dict[str, torch.Tensor]:
+    """Uniform average of the model state of N checkpoint files (port or
+    reference ``.pth``): ``bts_tpu``'s ``average_checkpoints``. Float
+    tensors are summed in float64, divided by N and cast back to their
+    dtype; the others (``num_batches_tracked``) keep the first file's value.
+    BN running statistics are averaged too, the usual cheap stand-in for
+    re-estimating them with a pass over data."""
+    if not paths:
+        raise ValueError("average_checkpoints: need at least one path")
+    first = load_checkpoint_dict(paths[0])["model"]
+    acc = {k: v.double() for k, v in first.items() if v.is_floating_point()}
+    for path in paths[1:]:
+        state = load_checkpoint_dict(path)["model"]
+        if state.keys() != first.keys():
+            raise ValueError(f"{path}: its tensors differ by name from {paths[0]}'s")
+        for k in acc:
+            acc[k] += state[k].double()
+    n = float(len(paths))
+    return {k: (acc[k] / n).to(v.dtype) if k in acc else v for k, v in first.items()}
+
+
+def save_params_only(path: str, state: Dict[str, torch.Tensor]) -> None:
+    """An inference checkpoint: the reference's dict with only its ``model``
+    key, written atomically; ``cli.test`` and ``--checkpoint_path`` read it."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"model": state}, tmp)
+    os.replace(tmp, path)
 
 
 def restore_training_start(cfg, state, best: BestTracker):

@@ -17,10 +17,19 @@ and cannot keep the first moment in bf16 (``--adam_bf16_moments``, optax's
 ``mu_dtype``).
 
 Freezing follows the reference's ``set_misc`` substring rules
-(pytorch/bts_main.py:217-247) on the port's torch names: the encoder's first
-conv (``base_model.conv0``), every encoder BN (``.norm``), and the first
-dense layer(s) under ``--fix_first_conv_block(s)``. The port has the DenseNet
-encoders only (ROADMAP.md queue 1, item 13, adds the others and their rules).
+(pytorch/bts_main.py:217-247) on the port's torch names, per family as
+``bts_tpu``'s ``frozen_predicate``:
+
+  * DenseNet: the first conv (``base_model.conv0``), every encoder BN
+    (``.norm``), and the first dense layer(s) under
+    ``--fix_first_conv_block(s)``;
+  * ResNet and ResNeXt: the stem conv and BN (``base_model.conv1``,
+    ``base_model.bn1``) and every block's ``bn1/bn2/bn3``; the downsample
+    BN (``downsample.1``) stays trainable, because the reference's ``.bn``
+    substring does not match it; the first block(s) of ``layer1`` under
+    ``--fix_first_conv_block(s)``;
+  * MobileNetV2: nothing (the reference's substrings match none of its
+    names).
 """
 
 from __future__ import annotations
@@ -38,20 +47,29 @@ B1, B2 = 0.9, 0.999  # optax.adamw's defaults, which bts_tpu uses
 
 
 def frozen_predicate(cfg: Config) -> Callable[[str], bool]:
-    """fn(torch parameter name) -> whether set_misc freezes it (DenseNet)."""
-    blocks: Tuple[str, ...] = ()
+    """fn(torch parameter name) -> whether set_misc freezes it."""
+    if cfg.encoder == "mobilenetv2_bts":
+        return lambda name: False
+    base = ENCODER_PREFIX + "base_model."
+    if "resne" in cfg.encoder:  # the reference's test ('resne' in encoder)
+        first = (base + "conv1.",)  # the stem BN is bn1: a marker below
+        bn_markers = (".bn1.", ".bn2.", ".bn3.")
+        first_blocks = ("layer1.0.", "layer1.1.")
+    else:
+        first = (base + "conv0.",)
+        bn_markers = (".norm",)
+        first_blocks = ("denseblock1.denselayer1.", "denseblock1.denselayer2.")
     if cfg.fix_first_conv_blocks:
-        blocks = ("denseblock1.denselayer1.", "denseblock1.denselayer2.")
+        blocks = tuple(base + b for b in first_blocks)
     elif cfg.fix_first_conv_block:
-        blocks = ("denseblock1.denselayer1.",)
-    first_conv = ENCODER_PREFIX + "base_model.conv0."
+        blocks = (base + first_blocks[0],)
+    else:
+        blocks = ()
 
     def pred(name: str) -> bool:
         if not name.startswith(ENCODER_PREFIX):
             return False
-        if name.startswith(first_conv) or ".norm" in name:
-            return True
-        return any(b in name for b in blocks)
+        return name.startswith(first + blocks) or any(m in name for m in bn_markers)
 
     return pred
 

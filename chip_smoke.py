@@ -79,13 +79,36 @@ Phases, in order; any failure raises and the script exits nonzero:
        ``cli.eval_with_pngs`` over its pngs: nine finite metrics over 8;
    (d) ``run_online_eval``'s img/s at 480x640, bf16, batch 8, with the
        device metrics on and off (host decoding included), and the eval
-       loader's own img/s over the same frames.
+       loader's own img/s over the same frames;
+9. the encoder zoo and the demos (each path's counts reset just before it
+   and read just after; no fused dense launch on any of them):
+   (a) ResNet-50/101, ResNeXt-50/101 and MobileNetV2-BTS at full width,
+       seeded, f32 (TF32 off), NYU 480x640 batch 1 on the card against the
+       CPU, all 5 outputs at rtol 1e-3, atol 1e-4, and ResNeXt-50 at KITTI
+       352x1216: 3 LPG launches a forward; each family's bf16 img/s at
+       batch 8;
+   (b) ``cli.test`` with ResNet-50 from a reference trainer's save (DDP
+       prefix, torchvision's ``fc``) over 8 NYU frames in bf16;
+   (c) ``cli.train`` with ResNeXt-50 on the recipe (416x544, batch 4, bf16,
+       ``--device_augment``) for 4 steps, ``model-2`` and ``model-4`` saved:
+       3 LPG backward launches a step; one f32 train step of ResNet-50 and of
+       MobileNetV2, card against CPU as in 7(b) but held to a float64 CPU
+       step (the card no further from it than 2x the CPU's f32 step), with
+       set_misc's frozen set (ResNet: stem and block BNs frozen,
+       ``downsample.1`` trainable; MobileNetV2: nothing);
+   (d) ``cli.avg_checkpoints`` over those two files (each tensor the
+       float64 mean cast back), then ``cli.test`` from the average;
+   (e) ``cli.sequence`` over 4 frames of 470x620 and ``cli.live3d
+       --image_dir`` over 2 frames on the average, then the live3d
+       ``depth_fn``'s batch-1 ms a frame at 480x640 (DenseNet161 in f32 and
+       bf16, MobileNetV2 in f32, ResNeXt-50 in bf16).
+Each phase's seconds are printed as it ends, and as JSON after phase 9.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
 for f32 taps and f32 eo, from the bf16 eo forward of phase 6 for bf16 eo,
 from phase 7's ``cli.train`` for the LPG backward, with its per-site times
-and the launch floor;
+and the launch floor; both LPG records carry phase 9's counts by path;
 ``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
 record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
 its own work, ``layer_bound_ms`` the taps form's); the last line is
@@ -140,10 +163,29 @@ DENSE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-4, 
 # TFLOP/s); and HBM3. The bounds below divide this run's work by them.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# Phase 9: the encoders beside DenseNet, and the frames of its demos.
+ZOO_ENCODERS = ["resnet50_bts", "resnet101_bts", "resnext50_bts", "resnext101_bts",
+                "mobilenetv2_bts"]
+ZOO_TRAIN_STEPS = 4
+SEQUENCE_FRAMES, SEQUENCE_HW = 4, (470, 620)  # not multiples of 32
+LIVE3D_FRAMES = 2
 
 
-def phase(msg):
-    print(f"== {msg}", flush=True)
+PHASE_SECONDS = {}  # phase -> its seconds, host clock
+_CURRENT = []  # [(name, start)] of the phase under way
+
+
+def phase(msg=None):
+    """Start phase ``msg`` (None: end the last), printing the seconds of
+    the one before."""
+    now = time.perf_counter()
+    if _CURRENT:
+        name, start = _CURRENT.pop()
+        PHASE_SECONDS[name] = now - start
+        print(f"-- phase {name}: {now - start:.1f} s", flush=True)
+    if msg is not None:
+        _CURRENT.append((msg.split()[0], now))
+        print(f"== {msg}", flush=True)
 
 
 def cuda_median_ms(fn, samples=50, reps=10, warmup=5):
@@ -499,47 +541,94 @@ def check_lpg_train(torch, lpg_cuda, lpg):
 
 
 def train_step_card_against_cpu(torch, Config, create_model, create_optimizer, TrainState,
-                                make_train_step, reset_counts, counts):
-    """Phase 7b: one f32 train step (TF32 off) of DenseNet161-BTS at full
-    width, seeded weights, on a 2x416x544 batch, on the card and on the CPU:
-    the loss at rtol 1e-4, every parameter and BN statistic after the step
-    at atol 1e-4 (Adam normalises the update: a parameter moves by at most
-    about lr = 1e-4); exactly 3 forward and 3 backward LPG launches and no
-    fused dense launch on the card."""
-    tcfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=MAX_DEPTH, bts_size=512,
+                                make_train_step, reset_counts, counts,
+                                encoder="densenet161_bts", against_float64=False):
+    """Phase 7b (and 9c for other encoders): one f32 train step (TF32 off)
+    of ``encoder``-BTS at full width, seeded weights, on a 2x416x544 batch,
+    on the card and on the CPU: the loss at rtol 1e-4; exactly 3 forward and
+    3 backward LPG launches and no fused dense launch on the card. Then every
+    parameter and BN statistic after the step at atol 1e-4 (Adam normalises
+    the update: a parameter moves by at most about lr = 1e-4).
+
+    With ``against_float64`` a float64 step on the CPU is the reference in
+    place of that atol: with BN in train mode the ResNet family's f32
+    gradient is ill-conditioned (either f32 step's is off the float64 one by
+    up to about 20% of a leaf's largest magnitude at this size, so where a
+    gradient is near Adam's eps the two f32 updates part by more than 1e-4).
+    The card's worst gradient error (each leaf's largest, over the larger of
+    the leaf's largest magnitude and 1e-4 of the largest of all) and its
+    worst state error after the step must be at most 2x the CPU f32 step's.
+
+    Returns the launches and the names of the parameters set_misc froze on
+    the card."""
+    tcfg = Config(encoder=encoder, dataset="nyu", max_depth=MAX_DEPTH, bts_size=512,
                   learning_rate=1e-4, weight_decay=1e-2, adam_eps=1e-3, batch_size=2,
                   input_height=416, input_width=544)
     gen = torch.Generator().manual_seed(7)
     host = {"image": torch.randn(2, 416, 544, 3, generator=gen),
             "depth": torch.rand(2, 416, 544, 1, generator=gen) * 9.5 + 0.05,
             "focal": torch.full((2,), 518.8579)}
+    runs = [("cuda", torch.float32), ("cpu", torch.float32)]
+    if against_float64:
+        runs.append(("cpu", torch.float64))
     out = {}
-    for device in ("cuda", "cpu"):
-        model = create_model(tcfg).to(device)
+    for device, dtype in runs:
+        model = create_model(tcfg).to(device=device, dtype=dtype)
         optimizer, _ = create_optimizer(tcfg, model, 1000)
         state = TrainState(model, optimizer)
         reset_counts()
-        loss = make_train_step(tcfg)(state, {k: v.to(device) for k, v in host.items()})
+        loss = make_train_step(tcfg)(state, {k: v.to(device=device, dtype=dtype)
+                                             for k, v in host.items()})
         if device == "cuda":
             torch.cuda.synchronize()
             launched = counts()
             want = {"taps": 0, "eo": 0, "lpg": 3, "lpg_backward": 3}
             if launched != want:
-                raise RuntimeError(f"f32 train step: kernel launches {launched}, expected {want}")
-        out[device] = (loss.cpu(), {k: v.detach().cpu() for k, v in model.state_dict().items()})
-    (gl, gs), (cl, cs) = out["cuda"], out["cpu"]
+                raise RuntimeError(f"{encoder} f32 train step: kernel launches {launched}, "
+                                   f"expected {want}")
+            frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+        grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        out[device, dtype] = (loss.cpu(), {k: v.detach().cpu() for k, v in
+                                           model.state_dict().items()}, grads)
+        del model, optimizer, state
+    (gl, gs, gg), (cl, cs, cg) = out["cuda", torch.float32], out["cpu", torch.float32]
     torch.testing.assert_close(gl, cl, rtol=1e-4, atol=0)
-    worst = (0.0, "")
     for key, want in cs.items():
         if not want.is_floating_point():
             torch.testing.assert_close(gs[key], want, rtol=0, atol=0)
-            continue
-        torch.testing.assert_close(gs[key], want, rtol=0, atol=1e-4, msg=lambda m: f"{key}: {m}")
-        worst = max(worst, ((gs[key] - want).abs().max().item(), key))
-    print(f"f32 train step, card against CPU: loss {gl.item()!r} against {cl.item()!r}; "
-          f"{len(cs)} state entries within atol 1e-4, largest diff {worst[0]!r} ({worst[1]}); "
-          f"launches {launched}")
-    return launched
+    if against_float64:
+        _, xs, xg = out["cpu", torch.float64]
+        top = max(float(g.abs().max()) for g in xg.values())
+
+        def grad_err(grads):
+            return max((float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-4 * top),
+                        n) for n, g in xg.items())
+
+        def state_err(st):
+            return max((float((st[k].double() - v).abs().max()), k) for k, v in xs.items()
+                       if v.is_floating_point())
+
+        errs = {"grad": (grad_err(gg), grad_err(cg)), "state": (state_err(gs), state_err(cs))}
+        for what, (card, cpu) in errs.items():
+            if card[0] > 2 * cpu[0]:
+                raise RuntimeError(f"{encoder} f32 train step: the card's worst {what} error "
+                                   f"against float64, {card}, exceeds 2x the CPU's, {cpu}")
+        detail = (f"against a float64 CPU step, worst gradient error (of the leaf's scale) card "
+                  f"{errs['grad'][0]!r}, CPU f32 {errs['grad'][1]!r}; worst state error card "
+                  f"{errs['state'][0]!r}, CPU f32 {errs['state'][1]!r}")
+    else:
+        worst = (0.0, "")
+        for key, want in cs.items():
+            if want.is_floating_point():
+                torch.testing.assert_close(gs[key], want, rtol=0, atol=1e-4,
+                                           msg=lambda m: f"{key}: {m}")
+                worst = max(worst, ((gs[key] - want).abs().max().item(), key))
+        detail = (f"{len(cs)} state entries within atol 1e-4, largest diff {worst[0]!r} "
+                  f"({worst[1]})")
+    print(f"{encoder} f32 train step, card against CPU: loss {gl.item()!r} against "
+          f"{cl.item()!r}; {detail}; launches {launched}; {len(frozen)} parameters frozen")
+    return launched, frozen
 
 
 def write_nyu_frames(root, n=8, h=480, w=640):
@@ -557,6 +646,28 @@ def write_nyu_frames(root, n=8, h=480, w=640):
     with open(manifest, "w") as f:
         f.write("\n".join(lines) + "\n")
     return manifest
+
+
+def write_frames(directory, n, h, w, seed):
+    """``n`` seeded RGB pngs of h x w in a new ``directory``."""
+    os.makedirs(directory)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(directory, f"frame_{i:03d}.png"))
+    return directory
+
+
+def check_pngs(directory, n, shape, dtype):
+    """``directory`` holds ``n`` pngs of this shape and dtype, none all 0."""
+    names = sorted(os.listdir(directory))
+    if len(names) != n:
+        raise RuntimeError(f"{directory}: {len(names)} pngs, expected {n}: {names}")
+    for name in names:
+        a = np.asarray(Image.open(os.path.join(directory, name)))
+        if a.dtype != dtype or a.shape != shape or a.max() == 0:
+            raise RuntimeError(f"{name}: {a.dtype} {a.shape} max {a.max()}")
+    return names
 
 
 def write_manifest_head(manifest, name, n):
@@ -737,10 +848,15 @@ def train_throughput(torch, Config, create_model, create_optimizer, TrainState, 
 
 
 def throughput(torch, model, batch, dense_impl, lpg_impl, iters=20, bf16=True):
-    """Forward img/s at this batch, in bf16 autocast (or f32), CUDA events
-    around iters runs."""
+    """Forward img/s of a DenseNet-BTS model with these dense and LPG impls."""
     model.encoder.dense_impl = dense_impl
     model.decoder.lpg_impl = lpg_impl
+    return forward_rate(torch, model, batch, iters, bf16)
+
+
+def forward_rate(torch, model, batch, iters=20, bf16=True):
+    """Forward img/s at 480x640 at this batch, in bf16 autocast (or f32),
+    CUDA events around iters runs."""
     x = torch.randn(batch, 3, 480, 640, device="cuda")
     focal = torch.full((batch,), 518.8579, device="cuda")
     with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
@@ -771,8 +887,12 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    from bts_tpu_torch.apps import live3d
+    from bts_tpu_torch.cli import avg_checkpoints as cli_avg
     from bts_tpu_torch.cli import eval as cli_eval
     from bts_tpu_torch.cli import eval_with_pngs as cli_eval_with_pngs
+    from bts_tpu_torch.cli import live3d as cli_live3d
+    from bts_tpu_torch.cli import sequence as cli_sequence
     from bts_tpu_torch.cli import test as cli_test
     from bts_tpu_torch.cli import train as cli_train
     from bts_tpu_torch.config import Config, parse_args
@@ -1163,6 +1283,226 @@ def main():
     del fresh
     train_tmp.cleanup()
 
+    phase("9 encoder zoo: card against CPU, cli.test, cli.train, averaging, demos")
+    no_dense = {"taps": 0, "eo": 0}
+
+    def expect(what, lpg=0, lpg_backward=0, taps=0):
+        got = counts()
+        want = {"taps": taps, "eo": 0, "lpg": lpg, "lpg_backward": lpg_backward}
+        if got != want:
+            raise RuntimeError(f"{what}: kernel launches {got}, expected {want}")
+        return got
+
+    # (a) Each encoder's f32 forward (TF32 off) at full width, batch 1, on the
+    # card against the CPU: 3 LPG and no dense launches; bf16 img/s at batch 8.
+    zoo_launches = {}
+    zoo_rates = {}
+    zoo_forwards = [(e, "nyu", 10.0, (1, 3, 480, 640), 518.8579) for e in ZOO_ENCODERS]
+    zoo_forwards.append(("resnext50_bts", "kitti", 80.0, (1, 3, 352, 1216), 721.5377))
+    for encoder, dataset, max_depth, shape, f in zoo_forwards:
+        label = f"{encoder} {dataset} {shape[2]}x{shape[3]}"
+        fcfg = Config(encoder=encoder, dataset=dataset, max_depth=max_depth, bts_size=512)
+        x = torch.randn(*shape, generator=gen)
+        focal = torch.tensor([f])
+        model = create_model(fcfg).eval()
+        with torch.inference_mode():
+            want = model(x, focal)
+        model.cuda()
+        reset_counts()
+        with torch.inference_mode():
+            got = model(x.cuda(), focal.cuda())
+            torch.cuda.synchronize()
+        zoo_launches[label] = expect(f"f32 forward {label}", lpg=3)
+        diffs = []
+        for name, g, w in zip(["lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth"], got, want,
+                              strict=True):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-4,
+                                       msg=lambda m: f"{label} {name}: {m}")
+            diffs.append((g.cpu() - w).abs().max().item())
+        print(f"{label} f32, card against CPU: max abs diffs (lpg8x8, lpg4x4, lpg2x2, reduc1x1, "
+              f"depth) {diffs!r} within rtol 1e-3, atol 1e-4; launches {zoo_launches[label]}")
+        if dataset == "nyu":
+            zoo_rates[encoder] = forward_rate(torch, model, 8)
+            print(f"forward bf16 480x640 batch 8 {encoder}: {zoo_rates[encoder]!r} img/s ({smi})")
+        del model, got, want
+        torch.cuda.empty_cache()
+
+    zoo_tmp = tempfile.TemporaryDirectory()
+    tmp = zoo_tmp.name
+    data = os.path.join(tmp, "data")
+    manifest = write_nyu_frames(data, TRAIN_BATCH * ZOO_TRAIN_STEPS)
+    serve_manifest = write_manifest_head(manifest, "serve.txt", EVAL_FRAMES)
+    serve_forwards = math.ceil(EVAL_FRAMES / EVAL_BATCH)
+
+    def serve(encoder, checkpoint, name):
+        """cli.test over the first EVAL_FRAMES frames in bf16: 3 LPG and no
+        dense launches a forward, EVAL_FRAMES uint16 480x640 pngs."""
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            rc = cli_test.main([
+                "--encoder", encoder, "--dataset", "nyu", "--max_depth", "10",
+                "--compute_dtype", "bfloat16", "--eval_batch_size", str(EVAL_BATCH),
+                "--data_path", data, "--filenames_file", serve_manifest,
+                "--model_name", name, "--checkpoint_path", checkpoint])
+            torch.cuda.synchronize()
+            launched = expect(f"cli.test {encoder}", lpg=3 * serve_forwards)
+        finally:
+            os.chdir(cwd)
+        if rc != 0:
+            raise RuntimeError(f"cli.test {encoder} from {checkpoint} returned {rc}")
+        check_pngs(os.path.join(tmp, f"result_{name}", "raw"), EVAL_FRAMES, (480, 640),
+                   np.uint16)
+        return launched
+
+    # (b) cli.test with ResNet-50 from a reference trainer's save: DDP
+    # prefix, and torchvision's fc, which the reference never calls.
+    reference = create_model(Config(encoder="resnet50_bts", bts_size=512, seed=3))
+    state = {"module." + k: v for k, v in reference.state_dict().items()}
+    fc_gen = torch.Generator().manual_seed(3)
+    state["module.encoder.base_model.fc.weight"] = torch.randn(1000, 2048, generator=fc_gen)
+    state["module.encoder.base_model.fc.bias"] = torch.randn(1000, generator=fc_gen)
+    reference_pth = os.path.join(tmp, "resnet50_reference.pth")
+    torch.save({"model": state, "global_step": 0}, reference_pth)
+    del reference, state
+    zoo_launches["cli.test resnet50"] = serve("resnet50_bts", reference_pth, "zoo_resnet50")
+    print(f"cli.test resnet50_bts from a reference save with fc: {EVAL_FRAMES} raw pngs, "
+          f"launches {zoo_launches['cli.test resnet50']}")
+
+    # (c) cli.train with ResNeXt-50 on the recipe (416x544, batch 4, bf16,
+    # --device_augment), periodic model-N files in place of the online eval.
+    log_dir = os.path.join(tmp, "logs")
+    args_path, overrides = train_args(manifest, serve_manifest, log_dir)
+    overrides += ["--encoder", "resnext50_bts", "--no-do_online_eval", "--save_freq", "2",
+                  "--model_name", "zoo_resnext50"]
+    capture = io.StringIO()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
+            rc = cli_train.main(["@" + args_path, *overrides])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        zoo_train = counts()
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise RuntimeError(f"cli.train resnext50_bts returned {rc}")
+    steps = [(int(gs), float(loss)) for gs, _, loss in STEP_LINE.findall(capture.getvalue())]
+    if [gs for gs, _ in steps] != list(range(1, ZOO_TRAIN_STEPS + 1)) or not all(
+            math.isfinite(loss) for _, loss in steps):
+        raise RuntimeError(f"cli.train resnext50_bts logged {steps}")
+    if (zoo_train["lpg_backward"] != 3 * ZOO_TRAIN_STEPS
+            or zoo_train["lpg"] < 3 * ZOO_TRAIN_STEPS
+            or {k: zoo_train[k] for k in no_dense} != no_dense):
+        raise RuntimeError(f"cli.train resnext50_bts: kernel launches {zoo_train}, expected 3 "
+                           "LPG backward and at least 3 LPG forward a step, no dense")
+    zoo_launches["cli.train resnext50"] = zoo_train
+    zoo_run = os.path.join(log_dir, "zoo_resnext50")
+    zoo_ckpts = list_step_checkpoints(zoo_run)
+    if sorted(zoo_ckpts) != [2, 4]:
+        raise RuntimeError(f"cli.train resnext50_bts wrote {sorted(os.listdir(zoo_run))}")
+    print(f"cli.train resnext50_bts: {ZOO_TRAIN_STEPS} steps at batch {TRAIN_BATCH} (bf16, "
+          f"device_augment), losses {[loss for _, loss in steps]!r}, kernel launches "
+          f"{zoo_train}, {elapsed:.1f} s including model build; wrote model-2 and model-4")
+
+    for encoder in ("resnet50_bts", "mobilenetv2_bts"):
+        launched, frozen = train_step_card_against_cpu(
+            torch, Config, create_model, create_optimizer, TrainState, make_train_step,
+            reset_counts, counts, encoder=encoder, against_float64=True)
+        zoo_launches[f"train step {encoder}"] = launched
+        base = "encoder.base_model."
+        if encoder == "mobilenetv2_bts":
+            ok = not frozen
+        else:
+            ok = ({base + "conv1.weight", base + "bn1.weight", base + "layer1.0.bn2.weight"}
+                  <= frozen and base + "layer1.0.downsample.1.weight" not in frozen)
+        if not ok:
+            raise RuntimeError(f"{encoder}: set_misc froze {sorted(frozen)}")
+
+    # (d) cli.avg_checkpoints over (c)'s model-2 and model-4, then cli.test
+    # from the average.
+    avg_path = os.path.join(tmp, "avg.pth")
+    if cli_avg.main(["--out", avg_path, zoo_ckpts[2], zoo_ckpts[4]]) != 0:
+        raise RuntimeError("cli.avg_checkpoints failed")
+    a, b = (load_checkpoint(zoo_ckpts[s]) for s in (2, 4))
+    avg = load_checkpoint(avg_path)
+    for k, v in avg.items():
+        want = ((a[k].double() + b[k].double()) / 2).to(v.dtype) if v.is_floating_point() else a[k]
+        if not torch.equal(v, want):
+            raise RuntimeError(f"cli.avg_checkpoints: {k} is not the mean of the two files")
+    del a, b, avg
+    zoo_launches["cli.test resnext50 average"] = serve("resnext50_bts", avg_path, "zoo_avg")
+    print(f"cli.avg_checkpoints: {len(load_checkpoint(avg_path))} tensors, each the float64 "
+          f"mean cast back; cli.test from it: {EVAL_FRAMES} raw pngs, launches "
+          f"{zoo_launches['cli.test resnext50 average']}")
+
+    # (e) The demos on the averaged ResNeXt-50: cli.sequence over frames whose
+    # size is no multiple of 32, cli.live3d headless; then the live3d
+    # depth_fn's latency at batch 1.
+    demo_args = ["--encoder", "resnext50_bts", "--dataset", "nyu", "--max_depth", "10",
+                 "--checkpoint_path", avg_path]
+    seq_dir = write_frames(os.path.join(tmp, "seq"), SEQUENCE_FRAMES, *SEQUENCE_HW, seed=9)
+    reset_counts()
+    rc = cli_sequence.main(["--image_dir", seq_dir, "--out_dir", os.path.join(tmp, "seq_out"),
+                            *demo_args])
+    torch.cuda.synchronize()
+    zoo_launches["cli.sequence"] = expect("cli.sequence", lpg=3 * SEQUENCE_FRAMES)
+    if rc != 0:
+        raise RuntimeError(f"cli.sequence returned {rc}")
+    check_pngs(os.path.join(tmp, "seq_out"), 4 * SEQUENCE_FRAMES, (*SEQUENCE_HW, 3), np.uint8)
+    live_dir = write_frames(os.path.join(tmp, "live"), LIVE3D_FRAMES, 480, 640, seed=10)
+    reset_counts()
+    rc = cli_live3d.main(["--image_dir", live_dir, "--out_dir", os.path.join(tmp, "live_out"),
+                          *demo_args])
+    torch.cuda.synchronize()
+    zoo_launches["cli.live3d"] = expect("cli.live3d", lpg=3 * LIVE3D_FRAMES)
+    if rc != 0:
+        raise RuntimeError(f"cli.live3d returned {rc}")
+    check_pngs(os.path.join(tmp, "live_out"), 3 * LIVE3D_FRAMES, (480, 640, 3), np.uint8)
+    print(f"cli.sequence: {SEQUENCE_FRAMES} frames of {SEQUENCE_HW}, launches "
+          f"{zoo_launches['cli.sequence']}; cli.live3d: {LIVE3D_FRAMES} frames, "
+          f"{3 * LIVE3D_FRAMES} renders, launches {zoo_launches['cli.live3d']}")
+    zoo_tmp.cleanup()
+
+    live3d_ms = {}
+    rgb = np.random.default_rng(11).integers(0, 255, (480, 640, 3), dtype=np.uint8)
+    for encoder, dtype, layers in (("densenet161_bts", "float32", DENSE_LAYERS),
+                                   ("densenet161_bts", "bfloat16", DENSE_LAYERS),
+                                   ("mobilenetv2_bts", "float32", 0),
+                                   ("resnext50_bts", "bfloat16", 0)):
+        depth_fn = live3d.make_depth_fn(Config(encoder=encoder, bts_size=512,
+                                               compute_dtype=dtype), "cuda")
+        reset_counts()
+        depth = depth_fn(rgb)
+        expect(f"live3d depth_fn {encoder} {dtype}", lpg=3, taps=layers)
+        if depth.shape != (480, 640) or not np.isfinite(depth).all():
+            raise RuntimeError(f"live3d depth_fn {encoder}: {depth.shape}")
+        for _ in range(3):
+            depth_fn(rgb)
+        frame_ms, cloud_ms = [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            depth_fn(rgb)  # returns host numpy: the card is done
+            t1 = time.perf_counter()
+            live3d.frame_to_cloud(rgb, depth_fn)
+            frame_ms.append((t1 - t0) * 1e3)
+            cloud_ms.append((time.perf_counter() - t1) * 1e3)
+        key = f"{encoder}_{dtype}"
+        live3d_ms[key] = {"depth_fn_ms": statistics.median(frame_ms),
+                          "frame_to_cloud_ms": statistics.median(cloud_ms)}
+        print(f"live3d depth_fn {encoder} {dtype} 480x640 batch 1: median "
+              f"{live3d_ms[key]['depth_fn_ms']!r} ms a frame (host clock: upload, forward, "
+              f"readback; 20 frames after 4), frame_to_cloud (depth and the numpy cloud) "
+              f"{live3d_ms[key]['frame_to_cloud_ms']!r} ms ({smi})")
+        del depth_fn
+        torch.cuda.empty_cache()
+    print(json.dumps({"zoo_forward_bf16_b8_img_per_s": zoo_rates, "live3d_ms": live3d_ms,
+                      "zoo_launches": zoo_launches, "device": smi}))
+    phase()
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
+
     if "jax" in sys.modules or "flax" in sys.modules:
         raise RuntimeError("jax was imported")
     bts_tpu = sorted(m for m in sys.modules if m == "bts_tpu" or m.startswith("bts_tpu."))
@@ -1198,12 +1538,15 @@ def main():
          "launches_per_forward": serving["lpg"] // forwards, **lpg_record("bfloat16"),
          "bound_by": "bytes", "library_ms": None,
          "float32": lpg_record("float32"), "bare_float32": lpg_record("bare"),
-         "train_sites": dict(zip(("ms", "plain_ms", "bound_ms"), lpg_fwd_train))},
+         "train_sites": dict(zip(("ms", "plain_ms", "bound_ms"), lpg_fwd_train)),
+         "zoo_launches": {k: v["lpg"] for k, v in zoo_launches.items()}},
         {"name": "lpg_backward", "route": "cuda", "source": LPG_SOURCE,
          "replaces": LPG_BWD_REPLACES, "grad_dtype": "bfloat16",
          "launches": train_path["lpg_backward"], "launches_per_step": 3,
          **lpg_bwd["bfloat16"], "bound_by": "bytes", "library_ms": None,
-         "launch_floor_ms": floor, "float32": lpg_bwd["float32"]},
+         "launch_floor_ms": floor, "float32": lpg_bwd["float32"],
+         "zoo_launches": {k: v["lpg_backward"] for k, v in zoo_launches.items()
+                          if v["lpg_backward"]}},
         dense_record("taps", "bfloat16", serving, forwards),
         dense_record("taps", "float32", f32_path["taps"], 1),
         dense_record("eo", "bfloat16", eo_path, 1),

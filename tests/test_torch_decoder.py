@@ -21,7 +21,8 @@ def randomize_bn(params, stats, rng):
 
     def walk(p, s):
         for k in p:
-            if k == "bn":
+            # "bn" also names MobileNetV2's BN shims, whose inner BN is "bn".
+            if k == "bn" and "scale" in p[k]:
                 c = p[k]["scale"].shape
                 p[k] = {
                     "scale": rng.uniform(0.5, 1.5, c).astype(np.float32),

@@ -41,12 +41,20 @@ SLICE_MODULES = [
     "bts_tpu_torch.models",
     "bts_tpu_torch.models.layers",
     "bts_tpu_torch.models.encoders.densenet",
+    "bts_tpu_torch.models.encoders.resnet",
+    "bts_tpu_torch.models.encoders.mobilenet",
     "bts_tpu_torch.models.decoder",
     "bts_tpu_torch.models.bts",
     "bts_tpu_torch.models.convert",
     "bts_tpu_torch.apps.predict",
+    "bts_tpu_torch.apps.sequence",
+    "bts_tpu_torch.apps.live3d",
+    "bts_tpu_torch.apps.live3d_gl",
     "bts_tpu_torch.cli.test",
     "bts_tpu_torch.cli.train",
+    "bts_tpu_torch.cli.sequence",
+    "bts_tpu_torch.cli.live3d",
+    "bts_tpu_torch.cli.avg_checkpoints",
     "bts_tpu_torch.training",
     "bts_tpu_torch.training.loss",
     "bts_tpu_torch.training.lr",
@@ -99,8 +107,8 @@ def test_parse_args_device_and_checks(tmp_path):
     cfg, device = parse_args_with_device(["--device", "cpu", "--normalization", "caffe"])
     assert device == "cpu" and cfg.normalization == "caffe"
     assert parse_args_with_device([])[1] == ""
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        parse_args(["--encoder", "resnet50_bts"])
+    with pytest.raises(ValueError, match="unknown encoder 'resnet152_bts'"):
+        parse_args(["--encoder", "resnet152_bts"])
     with pytest.raises(NotImplementedError, match="queue 1, item 14"):
         parse_args(["--model_flavor", "tf"])
     with pytest.raises(NotImplementedError, match="queue 2, item 4"):

@@ -102,8 +102,8 @@ def test_port_names_are_reference_names():
 
 
 def test_unported_encoder_and_small_bts_size_raise():
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        bts.create_model(Config(encoder="resnet50_bts"))
+    with pytest.raises(ValueError, match="unknown encoder 'resnet152_bts'"):
+        bts.create_model(Config(encoder="resnet152_bts"))
     with pytest.raises(ValueError, match="bts_size"):
         bts.create_model(Config(encoder="densenet121_bts", bts_size=64))
 
