@@ -51,13 +51,14 @@ def compute_context(cfg: Config, device: torch.device):
 
 def load_model(cfg: Config, device: torch.device) -> torch.nn.Module:
     """create_model(cfg) seeded from cfg.seed, then the weights of
-    ``cfg.checkpoint_path`` (a reference or port .pth) when one is set."""
+    ``cfg.checkpoint_path`` (a reference or port .pth, or a TF checkpoint)
+    when one is set."""
     from bts_tpu_torch.models.bts import create_model
-    from bts_tpu_torch.models.convert import load_checkpoint
+    from bts_tpu_torch.models.convert import load_weights
 
     model = create_model(cfg)
     if cfg.checkpoint_path:
-        model.load_state_dict(load_checkpoint(cfg.checkpoint_path), strict=True)
+        model.load_state_dict(load_weights(cfg.checkpoint_path, model, cfg), strict=True)
     return model.to(device).eval()
 
 
@@ -77,6 +78,7 @@ def run_predictions(cfg: Config, device: torch.device) -> str:
     model = load_model(cfg, device)
     loader = EvalLoader(cfg, "test")
     normalization = cfg.resolved_normalization
+    print(f"{cfg.encoder}: model_flavor {cfg.resolved_flavor}, normalization {normalization}")
 
     out_dir = f"result_{cfg.model_name}"
     for sub in ("raw", "cmap", "rgb", "gt"):

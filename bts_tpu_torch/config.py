@@ -2,10 +2,13 @@
 
 A copy of ``bts_tpu/config.py``'s ``Config`` and argument parser, with the
 same fields, flags and defaults, so reference and ``bts_tpu`` args files
-carry over unchanged. Left out: the checkpoint sniffing behind
-``model_flavor auto`` and ``normalization auto`` (it reads TF and orbax
-checkpoints). ``parse_args`` checks what the port supports itself and pins
-both fields to concrete values, so nothing sniffs afterwards.
+carry over unchanged. ``model_flavor auto`` and ``normalization auto``
+resolve as ``bts_tpu``'s do, by sniffing the checkpoints (cached per
+instance): a full TF BTS checkpoint, or a port ``.pth`` whose decoder convs
+carry biases, is the TF graph, with caffe normalization. ``parse_args``
+checks what the port supports and pins both fields to their resolved values,
+so nothing sniffs afterwards. An orbax directory is refused: export it with
+``scripts/export_orbax_to_pth.py``.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ class Config:
     degree: float = 2.5
     do_kb_crop: bool = False
     use_right: bool = False
-    # 'imagenet' | 'caffe' | 'caffe_unscaled' | 'auto' (the port: imagenet)
+    # 'imagenet' | 'caffe' | 'caffe_unscaled' | 'auto'
     normalization: str = "auto"
 
     # Multi-device
@@ -93,8 +96,9 @@ class Config:
     focal: float = -1.0
 
     # Additions of bts_tpu (no reference equivalent); kept so its args
-    # files parse. The port reads compute_dtype, eval_batch_size, seed and
-    # lpg_impl; the rest belong to parts not ported yet.
+    # files parse. The port reads compute_dtype, eval_batch_size, seed,
+    # lpg_impl, model_flavor, device_augment and adam_bf16_moments; the
+    # rest are TPU layout options or belong to parts not ported yet.
     num_devices: int = 0
     mesh_axis_name: str = "data"
     compute_dtype: str = "float32"
@@ -133,18 +137,66 @@ class Config:
     def resolved_normalization(self) -> str:
         """'imagenet', 'caffe' or 'caffe_unscaled'. The TF reference scales
         by 0.017 only for densenet encoders, so 'caffe' on another encoder
-        resolves to 'caffe_unscaled'. 'auto' is 'imagenet': bts_tpu picks
-        caffe only for a TF checkpoint, which the port refuses."""
+        resolves to 'caffe_unscaled'. 'auto' is caffe where the weights were
+        trained on the TF pipeline's caffe statistics
+        (tensorflow/bts_dataloader.py:148-153): a TF --pretrained_model, or
+        the TF graph; else 'imagenet'."""
         if self.normalization in ("imagenet", "caffe_unscaled"):
             return self.normalization
+        if self.normalization not in ("caffe", "auto"):
+            raise ValueError(
+                f"normalization must be 'imagenet', 'caffe', 'caffe_unscaled' or 'auto' "
+                f"(got {self.normalization!r})"
+            )
+        caffe = "caffe" if self.encoder.startswith("densenet") else "caffe_unscaled"
         if self.normalization == "caffe":
-            return "caffe" if self.encoder.startswith("densenet") else "caffe_unscaled"
-        if self.normalization == "auto":
-            return "imagenet"
-        raise ValueError(
-            f"normalization must be 'imagenet', 'caffe', 'caffe_unscaled' or 'auto' "
-            f"(got {self.normalization!r})"
-        )
+            return caffe
+        if self.pretrained_model:
+            from bts_tpu_torch.models import convert_tf
+
+            if convert_tf.is_tf_checkpoint(self.pretrained_model):
+                return caffe
+        if self.resolved_flavor == "tf":
+            return caffe
+        return "imagenet"
+
+    @property
+    def resolved_flavor(self) -> str:
+        """'pt' or 'tf'; 'auto' sniffs --checkpoint_path and
+        --pretrained_model for the TF graph's weights: a full TF BTS
+        checkpoint (the TF zoo's bts_nyu_v2 / bts_eigen_v2), or a ``.pth``
+        whose state dict holds ``decoder.get_depth.0.bias`` (a port run of
+        the TF graph, or one exported from ``bts_tpu``'s). A TF checkpoint
+        needs tensorflow to be read: without it this raises ImportError.
+
+        The sniff reads the checkpoints, so its result is cached per
+        instance; ``replace`` makes a new instance, which sniffs afresh."""
+        if self.model_flavor in ("pt", "tf"):
+            return self.model_flavor
+        if self.model_flavor != "auto":
+            raise ValueError(
+                f"model_flavor must be 'pt', 'tf' or 'auto' (got {self.model_flavor!r})"
+            )
+        key = (self.checkpoint_path, self.pretrained_model)
+        cached = self.__dict__.get("_resolved_flavor_cache")
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from bts_tpu_torch.models import convert_tf
+        from bts_tpu_torch.training.checkpoint import pth_saved_tf_flavor
+
+        flavor = "pt"
+        for path in key:
+            if not path:
+                continue
+            if convert_tf.is_tf_checkpoint(path):
+                if convert_tf.is_full_tf_bts_checkpoint(path):
+                    flavor = "tf"
+                    break
+            elif os.path.isfile(path) and pth_saved_tf_flavor(path):
+                flavor = "tf"
+                break
+        self._resolved_flavor_cache = (key, flavor)
+        return flavor
 
     def validate(self) -> "Config":
         """Reject typo'd enum flags at the CLI boundary."""
@@ -156,11 +208,9 @@ class Config:
             raise ValueError(f"remat_scope must be 'encoder' or 'all' (got {self.remat_scope!r})")
         if self.lpg_impl not in ("auto", "xla", "pallas", "ffi"):
             raise ValueError(f"lpg_impl must be one of auto/xla/pallas/ffi (got {self.lpg_impl!r})")
-        if self.model_flavor not in ("pt", "tf", "auto"):
-            raise ValueError(
-                f"model_flavor must be 'pt', 'tf' or 'auto' (got {self.model_flavor!r})"
-            )
+        # These two raise on invalid values and cache their sniffs.
         _ = self.resolved_normalization
+        _ = self.resolved_flavor
         return self
 
 
@@ -215,28 +265,19 @@ def _check(cfg: Config) -> Config:
 
     if cfg.dataset not in ("nyu", "kitti"):
         raise ValueError(f"dataset must be 'nyu' or 'kitti' (got {cfg.dataset!r})")
+    from bts_tpu_torch.models import convert_tf
+
     check_impl(cfg.lpg_impl)
     check_encoder(cfg.encoder)
-    if cfg.model_flavor == "tf":
-        raise NotImplementedError(
-            "model_flavor 'tf' is not ported yet: ROADMAP.md queue 1, item 14"
-        )
-    if cfg.model_flavor not in ("pt", "auto"):
-        raise ValueError(
-            f"model_flavor must be 'pt', 'tf' or 'auto' (got {cfg.model_flavor!r})"
-        )
     for path in (cfg.checkpoint_path, cfg.pretrained_model):
-        if path and os.path.isdir(path):
+        if path and os.path.isdir(path) and not convert_tf.is_tf_checkpoint(path):
             raise NotImplementedError(
-                f"{path} is a directory (a bts_tpu orbax checkpoint?): export it "
-                "to a .pth first, ROADMAP.md queue 1, item 5"
+                f"{path} is a directory (a bts_tpu orbax checkpoint?): the port reads "
+                ".pth files and TF checkpoints; export it with python "
+                f"scripts/export_orbax_to_pth.py {path} <out.pth>"
             )
-        if path and os.path.exists(path + ".index"):
-            raise NotImplementedError(
-                f"{path} is a TF checkpoint: TF flavor is ROADMAP.md queue 1, item 14"
-            )
-    normalization = "imagenet" if cfg.normalization == "auto" else cfg.normalization
-    return cfg.replace(model_flavor="pt", normalization=normalization).validate()
+    return cfg.replace(model_flavor=cfg.resolved_flavor,
+                       normalization=cfg.resolved_normalization).validate()
 
 
 def config_to_argfile(cfg: Config) -> str:

@@ -73,7 +73,7 @@ def evaluate_pending(cfg: Config, ckpt_dir: Optional[str] = None, maturity_secs:
     """Evaluate every pending checkpoint on ``device`` (default the CUDA
     card); returns {step: measures}."""
     from bts_tpu_torch.models.bts import create_model
-    from bts_tpu_torch.models.convert import load_checkpoint
+    from bts_tpu_torch.models.convert import load_weights
 
     ckpt_dir = ckpt_dir or os.path.join(cfg.log_directory, cfg.model_name)
     pending = pending_checkpoints(ckpt_dir, maturity_secs)
@@ -83,7 +83,7 @@ def evaluate_pending(cfg: Config, ckpt_dir: Optional[str] = None, maturity_secs:
     model = create_model(cfg).to(torch.device(device or "cuda"))
     results = {}
     for step, path in pending.items():
-        model.load_state_dict(load_checkpoint(path), strict=True)
+        model.load_state_dict(load_weights(path, model, cfg), strict=True)
         measures = run_online_eval(model, cfg)
         if measures is None:
             continue

@@ -7,6 +7,7 @@ state dicts load with ``load_state_dict(strict=True)``.
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Tuple
 
@@ -15,6 +16,7 @@ from torch import nn
 
 from bts_tpu_torch.models.decoder import BTSDecoder
 from bts_tpu_torch.models.encoders import densenet, mobilenet, resnet
+from bts_tpu_torch.models.layers import TF_BN_EPS
 
 # name -> (factory, feat_out_channels), as bts_tpu's (pytorch/bts.py:273-301).
 ENCODERS = {
@@ -36,7 +38,12 @@ class BTSModel(nn.Module):
     ``auto``: an inference forward on a card runs the dense layers through
     the fused kernel. The ResNet, ResNeXt and MobileNetV2 encoders are cuDNN
     convs throughout; every encoder's forward reaches the LPG kernel at the
-    decoder's three sites."""
+    decoder's three sites.
+
+    ``flavor="tf"`` builds the reference's TF graph (tensorflow/bts.py), the
+    graph of the TF zoo's checkpoints, for a DenseNet encoder only (the TF
+    zoo's): encoder BN eps 1.1e-5 and slim's SAME stem, and the decoder's TF
+    form (``decoder.py``)."""
 
     def __init__(
         self,
@@ -45,12 +52,21 @@ class BTSModel(nn.Module):
         dataset: str = "nyu",
         bts_size: int = 512,
         lpg_impl: str = "auto",
+        flavor: str = "pt",
     ):
         super().__init__()
         factory, feat_out_channels = ENCODERS[encoder_name]
-        self.encoder = factory()
+        kw = {}
+        if flavor == "tf":
+            if "bn_eps" not in inspect.signature(factory).parameters:
+                raise ValueError(
+                    f"flavor 'tf' takes a densenet encoder only (got {encoder_name!r}): the "
+                    "reference's TF zoo ships densenet121/161 (tensorflow/bts.py:398-430)"
+                )
+            kw = {"bn_eps": TF_BN_EPS, "tf_stem": True}
+        self.encoder = factory(**kw)
         self.decoder = BTSDecoder(
-            feat_out_channels, bts_size, max_depth, dataset, lpg_impl
+            feat_out_channels, bts_size, max_depth, dataset, lpg_impl, flavor
         )
 
     def forward(self, x: torch.Tensor, focal: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -59,8 +75,8 @@ class BTSModel(nn.Module):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded init, as bts_tpu's: Xavier-uniform conv kernels (the port's
-    convs have no bias), BN scale 1, bias 0, running mean 0, running var 1.
+    """Seeded init, as bts_tpu's: Xavier-uniform conv kernels, conv biases
+    (the TF graph's) 0, BN scale 1, bias 0, running mean 0, running var 1.
     Draws on the CPU generator. A grouped conv's fans count its in-channels
     per group (``weight.shape[1]``), as flax's over its grouped kernel."""
     for m in model.modules():
@@ -69,6 +85,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             bound = math.sqrt(6.0 / ((i + o) * kh * kw))
             w = torch.empty(m.weight.shape).uniform_(-bound, bound, generator=generator)
             m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     return model
@@ -82,7 +100,7 @@ def check_encoder(name: str) -> None:
 
 def create_model(cfg) -> BTSModel:
     """Build a BTSModel from a Config on the CPU, its weights seeded from
-    ``cfg.seed``."""
+    ``cfg.seed``, in the graph of ``cfg.resolved_flavor``."""
     check_encoder(cfg.encoder)
     if cfg.bts_size < 128:
         raise ValueError(
@@ -95,5 +113,6 @@ def create_model(cfg) -> BTSModel:
         dataset=cfg.dataset,
         bts_size=cfg.bts_size,
         lpg_impl=cfg.lpg_impl,
+        flavor=cfg.resolved_flavor,
     )
     return init_weights(model, torch.Generator().manual_seed(cfg.seed))

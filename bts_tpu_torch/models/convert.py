@@ -10,7 +10,11 @@ those names. The key mapping is a copy of ``bts_tpu/models/convert.py``'s
 
 Layout: flax kernel (kh, kw, I/groups, O) -> torch weight (O, I/groups, kh,
 kw), grouped and depthwise kernels too; BN scale/bias/mean/var ->
-weight/bias/running_mean/running_var.
+weight/bias/running_mean/running_var. TF-flavor trees (``BTSModel(flavor=
+"tf")``) carry conv biases; a bias is named by its conv's kernel.
+
+``load_weights`` reads any checkpoint the port serves from: a reference or
+port ``.pth``, or a TF checkpoint prefix (``convert_tf``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,16 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
         else:
             out[prefix + (k,)] = v
     return out
+
+
+def _unflatten(flat: Mapping[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
 
 
 def _decoder_key(parts, leaf: str, leaf_shape) -> str:
@@ -138,9 +152,12 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, tor
     port's state dict, ``num_batches_tracked`` = 0 for every BN."""
     state: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats):
-        for path, leaf in _flatten(tree).items():
+        flat = _flatten(tree)
+        for path, leaf in flat.items():
             arr = np.asarray(leaf, dtype=np.float32)
-            key = torch_key(path, arr.shape)
+            # A conv's bias is named by its kernel's shape (reduc inter_{in}_{out}).
+            kernel = flat.get(path[:-1] + ("kernel",), leaf)
+            key = torch_key(path, np.shape(kernel))
             if path[-1] == "kernel":
                 arr = arr.transpose(3, 2, 0, 1)
             state[key] = torch.tensor(arr)
@@ -173,3 +190,15 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     Loads tensors only (``weights_only``), on the CPU."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return model_state(ckpt.get("model", ckpt))
+
+
+def load_weights(path: str, model, cfg) -> Dict[str, torch.Tensor]:
+    """The state dict for ``model`` from ``path``: a reference or port
+    ``.pth`` (``load_checkpoint``), or a TF checkpoint prefix or directory,
+    converted strictly onto the TF graph (``convert_tf.load_full_tf``; needs
+    tensorflow)."""
+    from bts_tpu_torch.models import convert_tf
+
+    if convert_tf.is_tf_checkpoint(path):
+        return convert_tf.load_full_tf(path, model.state_dict(), cfg.encoder, cfg.bts_size)[0]
+    return load_checkpoint(path)

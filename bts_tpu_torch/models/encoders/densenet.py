@@ -10,6 +10,11 @@ transition3 -> denseblock4 -> norm5 [skip, pre-ReLU]).
 feat_out_channels: densenet121 [64, 64, 128, 256, 1024];
 densenet161 [96, 96, 192, 384, 2208].
 
+The TF graph (``bn_eps=1.1e-5, tf_stem=True``, ``models/bts.py``'s
+``flavor="tf"``) builds every BN with eps 1.1e-5 and pads the stem's 7x7/s2
+conv and 3x3/s2 max-pool with slim's SAME padding, (2, 3) and (0, 1) on even
+sizes; everything after the stem pads alike in both graphs.
+
 ``DenseNetEncoder.dense_impl`` picks how the dense layers run (the same
 function either way):
   - ``auto``: the fused taps kernel on a CUDA tensor in eval mode with grad
@@ -31,9 +36,10 @@ from collections import OrderedDict
 from typing import List, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from bts_tpu_torch.models.layers import encoder_bn
+from bts_tpu_torch.models.layers import ENCODER_BN_EPS, encoder_bn, same_pads
 from bts_tpu_torch.ops.fused_dense import (
     fold_bn,
     fused_dense_layer,
@@ -50,13 +56,14 @@ SKIP_NAMES = ("relu0", "pool0", "transition1", "transition2", "norm5")
 class DenseLayer(nn.Module):
     """BN -> ReLU -> 1x1 conv(4g) -> BN -> ReLU -> 3x3 conv(g)."""
 
-    def __init__(self, in_features: int, growth_rate: int, bn_size: int = 4):
+    def __init__(self, in_features: int, growth_rate: int, bn_size: int = 4,
+                 bn_eps: float = ENCODER_BN_EPS):
         super().__init__()
         mid = bn_size * growth_rate
-        self.norm1 = encoder_bn(in_features)
+        self.norm1 = encoder_bn(in_features, bn_eps)
         self.relu1 = nn.ReLU()
         self.conv1 = nn.Conv2d(in_features, mid, 1, bias=False)
-        self.norm2 = encoder_bn(mid)
+        self.norm2 = encoder_bn(mid, bn_eps)
         self.relu2 = nn.ReLU()
         self.conv2 = nn.Conv2d(mid, growth_rate, 3, padding=1, bias=False)
 
@@ -83,7 +90,8 @@ class DenseLayer(nn.Module):
         optimizer step) and a new dtype each compute it afresh. A train-mode
         forward updates the BN statistics in place without bumping their
         versions, so the key also holds the versions of both BN modules'
-        ``num_batches_tracked``, which that forward increments. Weights made
+        ``num_batches_tracked``, which that forward increments. BN folds with
+        each module's own eps (1.1e-5 in the TF graph). Weights made
         under ``inference_mode`` have no version counter: they are folded
         anew on every call.
         """
@@ -123,10 +131,12 @@ class DenseBlock(nn.ModuleDict):
     """Each layer sees the concatenation of the block input and all new
     features so far; returns that concatenation."""
 
-    def __init__(self, num_layers: int, in_features: int, growth_rate: int):
+    def __init__(self, num_layers: int, in_features: int, growth_rate: int,
+                 bn_eps: float = ENCODER_BN_EPS):
         super().__init__()
         for i in range(num_layers):
-            self[f"denselayer{i + 1}"] = DenseLayer(in_features + i * growth_rate, growth_rate)
+            self[f"denselayer{i + 1}"] = DenseLayer(in_features + i * growth_rate, growth_rate,
+                                                    bn_eps=bn_eps)
 
     def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
         if impl == "auto":
@@ -157,10 +167,10 @@ class DenseBlock(nn.ModuleDict):
 class Transition(nn.Sequential):
     """BN -> ReLU -> 1x1 conv -> avgpool 2x2/2."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, bn_eps: float = ENCODER_BN_EPS):
         super().__init__(
             OrderedDict(
-                norm=encoder_bn(in_features),
+                norm=encoder_bn(in_features, bn_eps),
                 relu=nn.ReLU(),
                 conv=nn.Conv2d(in_features, out_features, 1, bias=False),
                 pool=nn.AvgPool2d(2, stride=2),
@@ -177,24 +187,29 @@ class DenseNetEncoder(nn.Module):
         growth_rate: int,
         num_init_features: int,
         dense_impl: str = "auto",
+        bn_eps: float = ENCODER_BN_EPS,
+        tf_stem: bool = False,
     ):
         super().__init__()
+        # The TF stem pads in forward(), by the input's size.
         mods = OrderedDict(
-            conv0=nn.Conv2d(3, num_init_features, 7, stride=2, padding=3, bias=False),
-            norm0=encoder_bn(num_init_features),
+            conv0=nn.Conv2d(3, num_init_features, 7, stride=2, padding=0 if tf_stem else 3,
+                            bias=False),
+            norm0=encoder_bn(num_init_features, bn_eps),
             relu0=nn.ReLU(),
-            pool0=nn.MaxPool2d(3, stride=2, padding=1),
+            pool0=nn.MaxPool2d(3, stride=2, padding=0 if tf_stem else 1),
         )
         c = num_init_features
         for i, num_layers in enumerate(block_config):
-            mods[f"denseblock{i + 1}"] = DenseBlock(num_layers, c, growth_rate)
+            mods[f"denseblock{i + 1}"] = DenseBlock(num_layers, c, growth_rate, bn_eps)
             c += num_layers * growth_rate
             if i != len(block_config) - 1:
-                mods[f"transition{i + 1}"] = Transition(c, c // 2)
+                mods[f"transition{i + 1}"] = Transition(c, c // 2, bn_eps)
                 c //= 2
-        mods["norm5"] = encoder_bn(c)
+        mods["norm5"] = encoder_bn(c, bn_eps)
         self.base_model = nn.Sequential(mods)
         self.dense_impl = dense_impl
+        self.tf_stem = tf_stem
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         if self.dense_impl not in DENSE_IMPLS:
@@ -203,6 +218,11 @@ class DenseNetEncoder(nn.Module):
             )
         skips = []
         for name, module in self.base_model.named_children():
+            if self.tf_stem and name in ("conv0", "pool0"):
+                # slim SAME; the pool follows a ReLU, so zeros pad as TF's
+                # ignored border does.
+                k = 7 if name == "conv0" else 3
+                x = F.pad(x, (*same_pads(x.shape[-1], k, 2), *same_pads(x.shape[-2], k, 2)))
             if isinstance(module, DenseBlock):
                 x = module(x, self.dense_impl)
             else:
@@ -212,9 +232,9 @@ class DenseNetEncoder(nn.Module):
         return skips
 
 
-def densenet121() -> DenseNetEncoder:
-    return DenseNetEncoder((6, 12, 24, 16), 32, 64)
+def densenet121(bn_eps: float = ENCODER_BN_EPS, tf_stem: bool = False) -> DenseNetEncoder:
+    return DenseNetEncoder((6, 12, 24, 16), 32, 64, bn_eps=bn_eps, tf_stem=tf_stem)
 
 
-def densenet161() -> DenseNetEncoder:
-    return DenseNetEncoder((6, 12, 36, 24), 48, 96)
+def densenet161(bn_eps: float = ENCODER_BN_EPS, tf_stem: bool = False) -> DenseNetEncoder:
+    return DenseNetEncoder((6, 12, 36, 24), 48, 96, bn_eps=bn_eps, tf_stem=tf_stem)

@@ -1,4 +1,5 @@
-"""Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
+"""Build the kernels in ``csrc/`` and load them with ctypes: the CUDA
+kernels (``*.cu``) with nvcc, the native CPU LPG (``lpg_cpu.cc``) with g++.
 
 The sources export plain C functions, so they compile without PyTorch's
 headers (seconds, not minutes). Each source compiles to an object in its own
@@ -10,6 +11,10 @@ is site-packages, builds into the per-user cache
 (``$XDG_CACHE_HOME/bts_tpu_torch/kernels``, by default
 ``~/.cache/bts_tpu_torch/kernels``). It is built at first use in a process.
 Nothing is built at import.
+
+``lpg_cpu.cc`` builds on its own with ``g++ -O3 -fPIC -shared -std=c++17``
+into the same directory, named by a hash of its source and the flags; it
+needs no nvcc, so a host without CUDA builds it too.
 """
 
 from __future__ import annotations
@@ -39,7 +44,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+CPU_SOURCE = CSRC / "lpg_cpu.cc"
+
 _LIB = None
+_CPU_LIB = None
 
 
 def _sources():
@@ -144,3 +153,48 @@ def load_library() -> ctypes.CDLL:
             eo.restype = i32
         _LIB = lib
     return _LIB
+
+
+def cpu_library_path() -> Path:
+    """Where the native CPU LPG library for the current source and flags lives."""
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    digest.update(CPU_SOURCE.read_bytes())
+    return BUILD_DIR / f"liblpg_cpu_{digest.hexdigest()[:16]}.so"
+
+
+def build_cpu() -> Path:
+    """Compile csrc/lpg_cpu.cc with g++ unless the library already exists;
+    raises if g++ is missing or fails."""
+    out = cpu_library_path()
+    if out.is_file():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the native CPU LPG (csrc/lpg_cpu.cc) "
+                           "cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(CPU_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_cpu_library() -> ctypes.CDLL:
+    """Build (once per process) and load the native CPU LPG, signatures set."""
+    global _CPU_LIB
+    if _CPU_LIB is None:
+        lib = ctypes.CDLL(str(build_cpu()))
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        # plane_eq, out, B, H, W, r
+        lib.lpg_cpu_forward.argtypes = [ptr, ptr, i64, i64, i64, i64]
+        lib.lpg_cpu_forward.restype = ctypes.c_int
+        # grad, plane_eq, dplane, B, H, W, r
+        lib.lpg_cpu_backward.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64]
+        lib.lpg_cpu_backward.restype = ctypes.c_int
+        _CPU_LIB = lib
+    return _CPU_LIB

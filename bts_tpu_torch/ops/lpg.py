@@ -27,7 +27,9 @@ Implementations (``impl``, ``bts_tpu``'s names so args files carry over):
   - ``auto`` / ``pallas``: the CUDA kernels (``ops/lpg_cuda.py``, forward
     and backward) on a CUDA tensor, the plain versions on a CPU tensor;
   - ``xla``: the plain version on any device (for timing and comparison);
-  - ``ffi``: not ported (ROADMAP.md queue 2, item 4).
+  - ``ffi``: the native CPU kernel (``ops/lpg_cpu.py``, ``csrc/lpg_cpu.cc``)
+    on f32 CPU tensors, forward and backward, then ``/ max_depth`` and the
+    cast in PyTorch; it raises for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -136,11 +138,6 @@ def check_impl(impl: str) -> None:
     """Raise unless ``impl`` is an LPG implementation the port runs."""
     if impl not in IMPLS:
         raise ValueError(f"lpg_impl must be one of {'/'.join(IMPLS)} (got {impl!r})")
-    if impl == "ffi":
-        raise NotImplementedError(
-            "lpg_impl 'ffi' (the native CPU kernel) is not ported yet: "
-            "ROADMAP.md queue 2, item 4"
-        )
 
 
 def local_planar_guidance(
@@ -156,9 +153,20 @@ def local_planar_guidance(
 
     ``auto``/``pallas`` take the CUDA kernel for any tensor not on the CPU
     (the kernel's wrapper raises for a device it cannot launch on); there is
-    no fallback to the plain version.
+    no fallback to the plain version. ``ffi`` takes the native CPU kernel on
+    plane_eq in f32 and raises for a tensor not on the CPU.
     """
     check_impl(impl)
+    if impl == "ffi":
+        if plane_eq.device.type != "cpu":
+            raise ValueError("lpg_impl 'ffi' is the native CPU kernel: it takes CPU tensors "
+                             f"(got {plane_eq.device}); use 'auto' on a card")
+        from bts_tpu_torch.ops.lpg_cpu import LpgCpu
+
+        depth = LpgCpu.apply(plane_eq.float(), upratio)
+        if max_depth is not None:
+            depth = depth / max_depth
+        return depth.to(plane_eq.dtype if out_dtype is None else out_dtype)
     use_kernel = impl != "xla" and plane_eq.device.type != "cpu"
     out_dtype = plane_eq.dtype if out_dtype is None else out_dtype
     return _LocalPlanarGuidance.apply(plane_eq, upratio, use_kernel, max_depth, out_dtype)

@@ -1,1 +1,2 @@
-"""Measurement scripts of the port (they need a CUDA card)."""
+"""Scripts of the port: the profilers (they need a CUDA card) and the
+reference-accuracy reproduction (``reproduce_reference``)."""

@@ -1,7 +1,7 @@
 """Where a forward's time goes on the card: ``python -m bts_tpu_torch.tools.profile_forward``.
 
 DenseNet161-BTS NYU at full width (``bts_size`` 512), 480x640, seeded
-weights, under ``inference_mode`` in ``--dtype`` bfloat16 (autocast, the
+weights, in the PT graph or (``--model_flavor tf``) the TF graph, under ``inference_mode`` in ``--dtype`` bfloat16 (autocast, the
 default) or float32 (``cli.test``'s default dtype; TF32 off in cuDNN and
 cuBLAS, so the plain convs are f32 too); at each batch the dense layers run
 in turns plain, ``--dense_impl`` (auto, the taps kernel, by default; or eo),
@@ -9,7 +9,8 @@ twice, and plain. For each
 run: ``torch.profiler`` over 3 forwards gives the kernels per forward, the
 device time per forward and its split by kind of kernel; the wall time per
 forward comes from 10 forwards without the profiler, host clock around work
-that ends in a synchronise. Idle is 1 - device time / wall time. Prints one
+that ends in a synchronise. Idle is 1 - device time / wall time; the 12
+kernels that take the most device time are listed by name. Prints one
 line per run and writes them as JSON to ``--out``
 (``build/profile_forward.json`` by default).
 Needs a CUDA card.
@@ -62,7 +63,7 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
             model(x, focal)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / timed
-    kernels, device_us, by_kind = 0, 0.0, {}
+    kernels, device_us, by_kind, by_name = 0, 0.0, {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -72,12 +73,14 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
             kernels += 1
         k = kind(e.name)
         by_kind[k] = by_kind.get(k, 0.0) + us / 1e3 / forwards
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / forwards
     device_ms = device_us / 1e3 / forwards
     return {
         "batch": x.shape[0], "dtype": "bfloat16" if bf16 else "float32",
         "dense_impl": dense_impl, "kernels": kernels // forwards,
         "device_ms": device_ms, "wall_ms": wall_ms, "idle": 1.0 - device_ms / wall_ms,
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
     }
 
 
@@ -87,6 +90,8 @@ def main(argv=None):
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     parser.add_argument("--dense_impl", choices=("auto", "eo"), default="auto",
                         help="the fused dense layers' form, timed against plain")
+    parser.add_argument("--model_flavor", choices=("pt", "tf"), default="pt",
+                        help="the reference's PyTorch graph or its TF graph")
     parser.add_argument("--out", default=os.path.join("build", "profile_forward.json"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -101,7 +106,8 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512)
+    cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512,
+                 model_flavor=args.model_flavor)
     model = create_model(cfg).cuda().eval()
     gen = torch.Generator().manual_seed(1)
     runs = []
@@ -110,6 +116,7 @@ def main(argv=None):
         focal = torch.full((b,), 518.8579, device="cuda")
         for dense_impl in ("plain", args.dense_impl, args.dense_impl, "plain"):
             run = profile_run(model, x, focal, dense_impl, bf16)
+            run["model_flavor"] = args.model_flavor
             run["device"] = smi
             runs.append(run)
             print(json.dumps(run), flush=True)

@@ -7,12 +7,13 @@ trainer's dict (pytorch/bts_main.py:500-503,532-539): ``global_step``,
 reference: ``model-{step}`` and ``model-{step}-best_{metric}_{value:.5f}``.
 
 Restore (``restore_training_start``) takes the port's own files (a full
-resume: weights, optimizer state, step, best tracker) and the reference's
-``.pth`` files, whose ``torch.optim.AdamW`` state has no counterpart here:
-the optimizer starts fresh with its LR schedule advanced to the restored
-step (``advance_schedule_count``). ``--retrain`` restarts the step and the
-LR. An orbax directory and a TF prefix are refused by ``config.parse_args``
-(ROADMAP.md queue 1, items 5 and 14). ``average_checkpoints`` and
+resume: weights, optimizer state, step, best tracker), the reference's
+``.pth`` files, whose ``torch.optim.AdamW`` state has no counterpart here,
+and TF checkpoints (the TF graph's weights and the stored global_step): for
+the last two the optimizer starts fresh with its LR schedule advanced to the
+restored step (``advance_schedule_count``). ``--retrain`` restarts the step
+and the LR. An orbax directory is refused by ``config.parse_args``; export
+it with ``scripts/export_orbax_to_pth.py``. ``average_checkpoints`` and
 ``save_params_only`` make an inference checkpoint of several
 (``cli/avg_checkpoints.py``).
 """
@@ -124,6 +125,16 @@ def load_checkpoint_dict(path: str) -> Dict[str, Any]:
     return ckpt
 
 
+TF_GRAPH_KEY = "decoder.get_depth.0.bias"  # only the TF graph's decoder convs have biases
+
+
+def pth_saved_tf_flavor(path: str) -> bool:
+    """True when the ``.pth`` at ``path`` holds the TF graph's weights: its
+    state dict has ``decoder.get_depth.0.bias`` (``bts_tpu``'s
+    ``orbax_saved_tf_flavor`` sniffs the same bias)."""
+    return TF_GRAPH_KEY in load_checkpoint_dict(path)["model"]
+
+
 def average_checkpoints(paths) -> Dict[str, torch.Tensor]:
     """Uniform average of the model state of N checkpoint files (port or
     reference ``.pth``): ``bts_tpu``'s ``average_checkpoints``. Float
@@ -162,9 +173,22 @@ def restore_training_start(cfg, state, best: BestTracker):
     * a reference torch file (trainer save, zoo release or bare state dict):
       the weights, plus global_step and the best tracker where the dict
       carries them; the optimizer's moments start fresh and its LR schedule
-      is advanced to the restored step.
+      is advanced to the restored step;
+    * a TF checkpoint (prefix or directory): its weights converted strictly
+      onto the TF graph, and global_step where it is stored; a fresh
+      optimizer, as for a reference file.
     """
-    if cfg.checkpoint_path:
+    from bts_tpu_torch.models import convert_tf
+
+    if cfg.checkpoint_path and convert_tf.is_tf_checkpoint(cfg.checkpoint_path):
+        converted, meta = convert_tf.load_full_tf(cfg.checkpoint_path, state.model.state_dict(),
+                                                  cfg.encoder, cfg.bts_size)
+        state.model.load_state_dict(converted, strict=True)
+        state.step = meta.get("global_step", 0)
+        advance_schedule_count(state.optimizer, state.step)
+        print(f"Loaded TF checkpoint '{cfg.checkpoint_path}' (global_step {state.step}; "
+              "fresh optimizer moments)")
+    elif cfg.checkpoint_path:
         ckpt = load_checkpoint_dict(cfg.checkpoint_path)
         state.model.load_state_dict(ckpt["model"], strict=True)
         step = int(ckpt.get("global_step", 0))

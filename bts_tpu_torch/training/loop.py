@@ -2,7 +2,8 @@
 
 Reference behaviours (pytorch/bts_main.py:322-604):
   * the model, seeded, and ``--pretrained_model`` warm start by name
-    intersection;
+    intersection (a ``.pth``, or a TF encoder checkpoint); a full TF BTS
+    checkpoint loads strictly into the TF graph;
   * AdamW param groups with set_misc freezing (``training/optim.py``);
   * checkpoint restore and ``--retrain`` (``training/checkpoint.py``);
   * a per-epoch reshuffle (``TrainLoader.epoch``);
@@ -121,15 +122,37 @@ def param_sum_avg(model: torch.nn.Module) -> float:
     return float(total) / max(len(params), 1)
 
 
-def warm_start(model: torch.nn.Module, path: str) -> None:
-    """Load the tensors of a torch .pth whose names and shapes match the
-    model's (the reference's --pretrained_model, tensorflow/bts_main.py:228-232)."""
+def warm_start(model: torch.nn.Module, path: str, cfg: Optional[Config] = None) -> None:
+    """``--pretrained_model`` (tensorflow/bts_main.py:228-232): a TF
+    checkpoint holding the decoder (``decoder/Conv/``) loads strictly
+    (``convert_tf.convert_full_tf``); any other TF checkpoint warm-starts the
+    encoder by name (``warm_start_from_tf``); both read ``cfg``'s encoder and
+    bts_size. A torch .pth loads the tensors whose names and shapes match the
+    model's."""
+    from bts_tpu_torch.models import convert_tf
     from bts_tpu_torch.models.convert import load_checkpoint
 
     own = model.state_dict()
+    if convert_tf.is_tf_checkpoint(path):
+        if cfg is None:
+            raise ValueError(f"warm start from the TF checkpoint {path} needs the config")
+        tf_vars = convert_tf.load_tf_checkpoint(convert_tf.tf_latest_checkpoint(path) or path)
+        if any("decoder/Conv/" in n for n in tf_vars):
+            state, report = convert_tf.convert_full_tf(tf_vars, own, cfg.encoder, cfg.bts_size)
+            model.load_state_dict(state, strict=True)
+            print(f"Loaded full TF BTS checkpoint '{path}' ({len(report['loaded'])} tensors)")
+            return
+        state, report = convert_tf.warm_start_from_tf(tf_vars, own, cfg.encoder)
+        model.load_state_dict(state, strict=True)
+        for name in report["unmatched_checkpoint"]:
+            # The reference's wording, tensorflow/bts_main.py:119.
+            print(f"{name} is in pretrained model but not in current training model")
+        print(f"Warm-started {len(report['loaded'])} tensors from TF checkpoint '{path}'")
+        return
     state = {k: v for k, v in load_checkpoint(path).items()
              if k in own and tuple(v.shape) == tuple(own[k].shape)}
     model.load_state_dict(state, strict=False)
+    print(f"Warm-started from '{path}'")
 
 
 def train(cfg: Config, max_steps: Optional[int] = None,
@@ -147,8 +170,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     model = create_model(cfg)
     print(f"Total number of parameters: {sum(p.numel() for p in model.parameters())}")
     if cfg.pretrained_model:
-        warm_start(model, cfg.pretrained_model)
-        print(f"Warm-started from '{cfg.pretrained_model}'")
+        warm_start(model, cfg.pretrained_model, cfg)
     model.to(device)
 
     loader = TrainLoader(cfg)

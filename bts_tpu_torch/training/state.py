@@ -9,9 +9,10 @@ optimizer's update. The step returns the loss as a device tensor and does not
 synchronise: the loop reads it back a few steps later.
 
 BN runs in train mode (torch's update rule: momentum, Bessel-corrected
-running variance) unless ``bn_no_track_stats``, which runs every BN module in
-eval mode inside the train-mode model (the reference's bn_init_as_tf,
-pytorch/bts.py:26-31). The dense blocks take the unfused cuDNN modules under
+running variance) unless ``bn_no_track_stats`` or the TF graph, which run
+every BN module in eval mode inside the train-mode model (the reference's
+bn_init_as_tf, pytorch/bts.py:26-31; the TF reference always trains so,
+tensorflow/bts.py:188-192, tensorflow/bts_main.py:167-168). The dense blocks take the unfused cuDNN modules under
 grad (``DenseBlock``'s ``auto``): the fused kernels are inference-only, as
 their Pallas originals were.
 """
@@ -57,9 +58,10 @@ def augment_generator(seed: int, step: int) -> torch.Generator:
 
 def set_bn_mode(model: nn.Module, cfg: Config) -> nn.Module:
     """model.train(), with every BN module in eval mode under
-    ``bn_no_track_stats``."""
+    ``bn_no_track_stats`` and in the TF graph (fine-tuning a TF checkpoint
+    normalizes by its moving statistics and leaves them as they are)."""
     model.train()
-    if cfg.bn_no_track_stats:
+    if cfg.bn_no_track_stats or cfg.resolved_flavor == "tf":
         for m in model.modules():
             if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.eval()

@@ -101,14 +101,48 @@ Phases, in order; any failure raises and the script exits nonzero:
    (e) ``cli.sequence`` over 4 frames of 470x620 and ``cli.live3d
        --image_dir`` over 2 frames on the average, then the live3d
        ``depth_fn``'s batch-1 ms a frame at 480x640 (DenseNet161 in f32 and
-       bf16, MobileNetV2 in f32, ResNeXt-50 in bf16).
-Each phase's seconds are printed as it ends, and as JSON after phase 9.
+       bf16, MobileNetV2 in f32, ResNeXt-50 in bf16);
+10. the TF graph (``--model_flavor tf``: the reference's TF zoo graph,
+    encoder BN eps 1.1e-5 folded into the taps kernels, the align-corners
+    guidance) and the native CPU LPG (each path's counts reset just before
+    it and read just after):
+   (a) a seeded TF-graph DenseNet161-BTS at full width (biases and BN
+       statistics drawn), NYU 480x640 batch 1, f32 with TF32 off, on the card
+       (``dense_impl`` and ``lpg_impl`` auto) against the CPU (plain
+       versions), all 5 outputs at rtol 1e-3, atol 1e-4: 78 f32 taps and 3
+       LPG launches; then bf16 on the card: 78 bf16 taps and 3 LPG, within
+       0.15 m of f32;
+   (b) the same at KITTI 352x1216, batch 1 (the ``bts_eigen_v2`` geometry);
+   (c) ``cli.test`` from a TF-graph ``.pth`` the phase saves, with
+       ``--model_flavor auto --normalization auto``: it prints the resolved
+       ``tf`` and ``caffe``, 8 uint16 pngs, 78 taps and 3 LPG a forward. A
+       TF checkpoint prefix needs tensorflow, which the card's host has not:
+       the CPU tests hold that path (tests/test_torch_tf_flavor.py);
+   (d) one f32 TF-graph train step, card against CPU as 7(b) (every BN
+       frozen); then ``cli.train`` for 4 steps at full width on
+       ``configs/arguments_train_nyu.txt`` with ``--model_flavor tf`` (online
+       eval off, ``model-4`` saved): finite losses, 3 LPG backward a step,
+       and every BN statistic in ``model-4`` as seeded (mean 0, variance 1,
+       no batch counted);
+   (e) bf16 img/s at batch 8, 480x640, of the TF graph beside the PT graph,
+       in turns (PT, TF, TF, PT);
+   (f) the native CPU LPG (``csrc/lpg_cpu.cc``, ``--lpg_impl ffi``) built
+       with g++ on the card's host: forward and gradient against the plain
+       versions at r = 8, 4 and 2 at tests/test_lpg_ffi.py's shapes and
+       tolerances (forward rtol 1e-5, atol 1e-6; gradient rtol 1e-4, atol
+       1e-5), and at the three NYU sites at batch 1 with TF-graph planes
+       (theta at most pi/6; forward at the same tolerance, gradient at
+       ``LPG_BWD_TOL`` of its terms' magnitude, the sums run in another
+       order); both timed on the host against the plain versions, the CPU
+       named from /proc/cpuinfo; ``impl="ffi"`` on a CUDA tensor raises.
+Each phase's seconds are printed as it ends, and as JSON after phase 10.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
 for f32 taps and f32 eo, from the bf16 eo forward of phase 6 for bf16 eo,
 from phase 7's ``cli.train`` for the LPG backward, with its per-site times
-and the launch floor; both LPG records carry phase 9's counts by path;
+and the launch floor; both LPG records carry phase 9's counts by path, and
+they and the taps records phase 10's under ``tf_launches``;
 ``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
 record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
 its own work, ``layer_bound_ms`` the taps form's); the last line is
@@ -169,6 +203,11 @@ ZOO_ENCODERS = ["resnet50_bts", "resnet101_bts", "resnext50_bts", "resnext101_bt
 ZOO_TRAIN_STEPS = 4
 SEQUENCE_FRAMES, SEQUENCE_HW = 4, (470, 620)  # not multiples of 32
 LIVE3D_FRAMES = 2
+# Phase 10: cli.train's steps on the TF graph, and the native CPU LPG's
+# tolerances (tests/test_lpg_ffi.py's).
+TF_TRAIN_STEPS = 4
+FFI_FWD_TOL = dict(rtol=1e-5, atol=1e-6)
+FFI_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 PHASE_SECONDS = {}  # phase -> its seconds, host clock
@@ -542,7 +581,7 @@ def check_lpg_train(torch, lpg_cuda, lpg):
 
 def train_step_card_against_cpu(torch, Config, create_model, create_optimizer, TrainState,
                                 make_train_step, reset_counts, counts,
-                                encoder="densenet161_bts", against_float64=False):
+                                encoder="densenet161_bts", against_float64=False, flavor="pt"):
     """Phase 7b (and 9c for other encoders): one f32 train step (TF32 off)
     of ``encoder``-BTS at full width, seeded weights, on a 2x416x544 batch,
     on the card and on the CPU: the loss at rtol 1e-4; exactly 3 forward and
@@ -559,11 +598,13 @@ def train_step_card_against_cpu(torch, Config, create_model, create_optimizer, T
     the leaf's largest magnitude and 1e-4 of the largest of all) and its
     worst state error after the step must be at most 2x the CPU f32 step's.
 
+    ``flavor`` 'tf' (phase 10(d)) steps the TF graph, every BN frozen.
+
     Returns the launches and the names of the parameters set_misc froze on
     the card."""
     tcfg = Config(encoder=encoder, dataset="nyu", max_depth=MAX_DEPTH, bts_size=512,
                   learning_rate=1e-4, weight_decay=1e-2, adam_eps=1e-3, batch_size=2,
-                  input_height=416, input_width=544)
+                  input_height=416, input_width=544, model_flavor=flavor)
     gen = torch.Generator().manual_seed(7)
     host = {"image": torch.randn(2, 416, 544, 3, generator=gen),
             "depth": torch.rand(2, 416, 544, 1, generator=gen) * 9.5 + 0.05,
@@ -626,8 +667,9 @@ def train_step_card_against_cpu(torch, Config, create_model, create_optimizer, T
                 worst = max(worst, ((gs[key] - want).abs().max().item(), key))
         detail = (f"{len(cs)} state entries within atol 1e-4, largest diff {worst[0]!r} "
                   f"({worst[1]})")
-    print(f"{encoder} f32 train step, card against CPU: loss {gl.item()!r} against "
-          f"{cl.item()!r}; {detail}; launches {launched}; {len(frozen)} parameters frozen")
+    print(f"{encoder} ({flavor} graph) f32 train step, card against CPU: loss {gl.item()!r} "
+          f"against {cl.item()!r}; {detail}; launches {launched}; {len(frozen)} parameters "
+          "frozen")
     return launched, frozen
 
 
@@ -873,6 +915,112 @@ def forward_rate(torch, model, batch, iters=20, bf16=True):
     return batch * iters / (start.elapsed_time(end) / 1000.0)
 
 
+def perturb(torch, model, gen):
+    """Draw every conv bias (the TF graph's are zeros at init) and every BN's
+    running statistics from ``gen``, so that a comparison reads them."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.01)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    return model
+
+
+def host_median_ms(fn, samples=20, warmup=3):
+    """Median host-clock ms of one call of ``fn`` (CPU work)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def cpu_name():
+    """The host CPU's model: /proc/cpuinfo's 'model name' (x86), else lscpu's
+    'Model name' (which also names ARM cores), with the core count."""
+    name = None
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    if name is None:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        m = re.search(r"^Model name:\s*(.+)$", out, re.M)
+        name = m.group(1).strip() if m else "unnamed"
+    return f"{name}, {os.cpu_count()} logical CPUs ({os.uname().machine})"
+
+
+def check_lpg_ffi(torch, lpg, lpg_cpu, build):
+    """Phase 10(f): the native CPU LPG built with g++, held against the plain
+    versions at tests/test_lpg_ffi.py's shapes and tolerances (r = 8, 4, 2),
+    then at the three NYU sites at batch 1 with TF-graph planes (theta at
+    most pi/6): the forward at FFI_FWD_TOL, the gradient at LPG_BWD_TOL of
+    its terms' magnitude (the sums run in another order). Each NYU site
+    timed on the host, native against plain; ``impl="ffi"`` on a CUDA tensor
+    must raise. Returns the record."""
+    prebuilt = build.cpu_library_path().is_file()
+    t0 = time.perf_counter()
+    lib = build.build_cpu()
+    built_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(12)
+
+    def planes(b, h, w):
+        logits = torch.randn(b, h, w, 3, generator=gen)
+        return lpg.normalize_plane(lpg.decode_plane_eq(logits, MAX_DEPTH, math.pi / 6)
+                                   ).contiguous()
+
+    calls = (lpg_cpu.CALLS, lpg_cpu.BWD_CALLS)
+    for r in (8, 4, 2):
+        pe = planes(2, 3, 5)
+        torch.testing.assert_close(lpg.local_planar_guidance(pe, r, impl="ffi"),
+                                   lpg.lpg_reference(pe, r), **FFI_FWD_TOL)
+        pe = planes(1, 2, 3)
+        g = torch.randn(1, 2 * r, 3 * r, generator=gen)
+        torch.testing.assert_close(lpg_cpu.lpg_backward_cpu(pe, g, r), lpg.lpg_backward(pe, g, r),
+                                   **FFI_GRAD_TOL)
+    rec = {"cpu": cpu_name(), "torch_threads": torch.get_num_threads(),
+           "built_here": not prebuilt, "build_s": built_s, "library": os.path.basename(lib), "max_abs_err": 0.0, "grad_max_abs_err": 0.0,
+           "ms": 0.0, "plain_ms": 0.0, "grad_ms": 0.0, "grad_plain_ms": 0.0, "sites": []}
+    for r, h, w in NYU_SITES:
+        pe = planes(1, h, w)
+        g = torch.randn(1, h * r, w * r, generator=gen)
+        got, want = lpg_cpu.lpg_cpu(pe, r), lpg.lpg_reference(pe, r)
+        torch.testing.assert_close(got, want, **FFI_FWD_TOL)
+        dgot, dwant = lpg_cpu.lpg_backward_cpu(pe, g, r), lpg.lpg_backward(pe, g, r)
+        err = (dgot - dwant).abs()
+        limit = LPG_BWD_TOL["atol"] + LPG_BWD_TOL["rtol"] * lpg_backward_magnitudes(
+            torch, lpg, pe, g, r, 1.0)
+        if not bool((err <= limit).all()):
+            worst = (err / limit).max().item()
+            raise RuntimeError(f"native CPU LPG gradient r={r}: error {worst!r} x its limit")
+        site = {"r": r, "ms": host_median_ms(lambda: lpg_cpu.lpg_cpu(pe, r)),
+                "plain_ms": host_median_ms(lambda: lpg.lpg_reference(pe, r)),
+                "grad_ms": host_median_ms(lambda: lpg_cpu.lpg_backward_cpu(pe, g, r)),
+                "grad_plain_ms": host_median_ms(lambda: lpg.lpg_backward(pe, g, r))}
+        rec["max_abs_err"] = max(rec["max_abs_err"], (got - want).abs().max().item())
+        rec["grad_max_abs_err"] = max(rec["grad_max_abs_err"], err.max().item())
+        for k in ("ms", "plain_ms", "grad_ms", "grad_plain_ms"):
+            rec[k] += site[k]
+        rec["sites"].append(site)
+        print(f"native CPU LPG r={r} B=1 grid {h}x{w}: forward {site['ms']!r} ms (plain "
+              f"{site['plain_ms']!r}), gradient {site['grad_ms']!r} ms (plain "
+              f"{site['grad_plain_ms']!r}); host clock, median of 20")
+    rec["native_calls"] = (lpg_cpu.CALLS - calls[0], lpg_cpu.BWD_CALLS - calls[1])
+    try:
+        lpg.local_planar_guidance(planes(1, 2, 3).cuda(), 2, impl="ffi")
+    except ValueError as e:
+        rec["cuda_refused"] = str(e)
+    else:
+        raise RuntimeError("lpg_impl 'ffi' took a CUDA tensor")
+    return rec
+
+
 def main():
     import torch
 
@@ -905,7 +1053,7 @@ def main():
     from bts_tpu_torch.models.bts import create_model
     from bts_tpu_torch.models.convert import load_checkpoint
     from bts_tpu_torch.models.encoders.densenet import DenseLayer
-    from bts_tpu_torch.ops import _build, fused_dense, fused_dense_cuda, lpg, lpg_cuda
+    from bts_tpu_torch.ops import _build, fused_dense, fused_dense_cuda, lpg, lpg_cpu, lpg_cuda
     from bts_tpu_torch.training import loop as train_loop
     from bts_tpu_torch.training.checkpoint import list_step_checkpoints
     from bts_tpu_torch.training.optim import create_optimizer
@@ -1238,13 +1386,16 @@ def main():
     print(f"cli.eval: evaluated model-{EVAL_FREQ} and model-{2 * EVAL_FREQ} (launches "
           f"{launched[0][0]}), ledger {ledger}; a second call evaluated nothing")
 
+    # A copy outside the run dir: inside it, cli.test would re-exec the run's
+    # code snapshot, whose kernels count launches in modules of their own.
+    served = shutil.copyfile(ckpt, os.path.join(tmp, "best_d1.pth"))
     os.chdir(tmp)
     try:
         rc = cli_test.main([
             "--encoder", "densenet161_bts", "--dataset", "nyu", "--max_depth", "10",
             "--compute_dtype", "bfloat16", "--eval_batch_size", str(EVAL_BATCH),
             "--data_path", data, "--filenames_file", eval_manifest,
-            "--model_name", "chip_smoke_trained", "--checkpoint_path", ckpt])
+            "--model_name", "chip_smoke_trained", "--checkpoint_path", served])
     finally:
         os.chdir(cwd)
     if rc != 0:
@@ -1500,6 +1651,142 @@ def main():
         torch.cuda.empty_cache()
     print(json.dumps({"zoo_forward_bf16_b8_img_per_s": zoo_rates, "live3d_ms": live3d_ms,
                       "zoo_launches": zoo_launches, "device": smi}))
+
+    phase("10 TF graph: NYU and KITTI card against CPU, cli.test, train, img/s; the CPU LPG")
+    tf_launches = {}
+    names = ["lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth"]
+    # (a, b) The TF graph's f32 forward on the card against the CPU; at NYU
+    # also in bf16. Biases and BN statistics drawn, so the comparison reads
+    # them; every encoder BN has eps 1.1e-5, which the taps kernels fold.
+    tf_forwards = [("nyu 480x640", "nyu", 10.0, (1, 3, 480, 640), 518.8579),
+                   ("kitti 352x1216", "kitti", 80.0, (1, 3, 352, 1216), 721.5377)]
+    for label, dataset, max_depth, shape, f in tf_forwards:
+        tcfg = Config(encoder="densenet161_bts", dataset=dataset, max_depth=max_depth,
+                      bts_size=512, model_flavor="tf")
+        model = perturb(torch, create_model(tcfg), gen).eval()
+        eps = {m.eps for m in model.encoder.modules() if isinstance(m, torch.nn.BatchNorm2d)}
+        if eps != {1.1e-5} or "decoder.get_depth.0.bias" not in model.state_dict():
+            raise RuntimeError(f"not the TF graph: encoder BN eps {eps}")
+        x = torch.randn(*shape, generator=gen)
+        focal = torch.tensor([f])
+        with torch.inference_mode():
+            want = model(x, focal)
+        model.cuda()
+        reset_counts()
+        with torch.inference_mode():
+            got = model(x.cuda(), focal.cuda())
+            torch.cuda.synchronize()
+        tf_launches[f"f32 forward {label}"] = check_counts(f"TF f32 forward {label}", 1, "taps")
+        diffs = []
+        for name, g, w in zip(names, got, want, strict=True):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-4,
+                                       msg=lambda m: f"TF {label} {name}: {m}")
+            diffs.append((g.cpu() - w).abs().max().item())
+        print(f"TF graph {label} f32, card against CPU: max abs diffs {diffs!r} within rtol "
+              f"1e-3, atol 1e-4; launches {tf_launches[f'f32 forward {label}']}")
+        if dataset == "nyu":
+            reset_counts()
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                bf16 = model(x.cuda(), focal.cuda())[4]
+                torch.cuda.synchronize()
+            tf_launches["bf16 forward nyu 480x640"] = check_counts("TF bf16 forward", 1, "taps")
+            diff = (bf16.float().cpu() - got[4].cpu()).abs().max().item()
+            if not (torch.isfinite(bf16).all() and diff < 0.15):
+                raise RuntimeError(f"TF bf16 forward: max abs diff to f32 {diff} m")
+            print(f"TF graph nyu bf16 against f32 on the card: max abs diff {diff!r} m; launches "
+                  f"{tf_launches['bf16 forward nyu 480x640']}")
+            tf_state = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model, got, want
+        torch.cuda.empty_cache()
+
+    # (c) cli.test from a TF-graph .pth, flavor and normalization resolved
+    # from it.
+    tf_tmp = tempfile.TemporaryDirectory()
+    tmp = tf_tmp.name
+    data = os.path.join(tmp, "data")
+    manifest = write_nyu_frames(data, TRAIN_BATCH * TF_TRAIN_STEPS)
+    serve_manifest = write_manifest_head(manifest, "serve.txt", EVAL_FRAMES)
+    tf_pth = os.path.join(tmp, "tf_graph.pth")
+    torch.save({"model": tf_state}, tf_pth)
+    capture = io.StringIO()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
+            rc = cli_test.main([
+                "--encoder", "densenet161_bts", "--dataset", "nyu", "--max_depth", "10",
+                "--compute_dtype", "bfloat16", "--eval_batch_size", str(EVAL_BATCH),
+                "--data_path", data, "--filenames_file", serve_manifest,
+                "--model_name", "tf_graph", "--checkpoint_path", tf_pth,
+                "--model_flavor", "auto", "--normalization", "auto"])
+        torch.cuda.synchronize()
+        tf_launches["cli.test"] = check_counts("TF cli.test", math.ceil(EVAL_FRAMES / EVAL_BATCH),
+                                               "taps")
+    finally:
+        os.chdir(cwd)
+    if rc != 0 or "model_flavor tf, normalization caffe" not in capture.getvalue():
+        raise RuntimeError(f"TF cli.test: rc {rc}, output {capture.getvalue()[-2000:]!r}")
+    check_pngs(os.path.join(tmp, "result_tf_graph", "raw"), EVAL_FRAMES, (480, 640), np.uint16)
+    print(f"cli.test from a TF-graph .pth (flavor and normalization auto): resolved tf and "
+          f"caffe, {EVAL_FRAMES} raw pngs, launches {tf_launches['cli.test']}")
+
+    # (d) One f32 train step card against CPU, then cli.train on the recipe.
+    tf_launches["f32 train step"] = train_step_card_against_cpu(
+        torch, Config, create_model, create_optimizer, TrainState, make_train_step,
+        reset_counts, counts, flavor="tf")[0]
+    log_dir = os.path.join(tmp, "logs")
+    args_path, overrides = train_args(manifest, serve_manifest, log_dir)
+    overrides += ["--model_flavor", "tf", "--no-do_online_eval", "--save_freq",
+                  str(TF_TRAIN_STEPS), "--model_name", "tf_nyu"]
+    capture = io.StringIO()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
+            rc = cli_train.main(["@" + args_path, *overrides])
+        torch.cuda.synchronize()
+        tf_train = counts()
+    finally:
+        os.chdir(cwd)
+    steps = [(int(gs), float(loss)) for gs, _, loss in STEP_LINE.findall(capture.getvalue())]
+    if rc != 0 or [gs for gs, _ in steps] != list(range(1, TF_TRAIN_STEPS + 1)) or not all(
+            math.isfinite(loss) for _, loss in steps):
+        raise RuntimeError(f"TF cli.train: rc {rc}, logged {steps}")
+    if (tf_train["lpg_backward"] != 3 * TF_TRAIN_STEPS or tf_train["lpg"] < 3 * TF_TRAIN_STEPS
+            or tf_train["taps"] or tf_train["eo"]):
+        raise RuntimeError(f"TF cli.train: kernel launches {tf_train}, expected 3 LPG backward "
+                           "and at least 3 LPG forward a step, no dense")
+    tf_launches["cli.train"] = tf_train
+    saved = load_checkpoint(os.path.join(log_dir, "tf_nyu", f"model-{TF_TRAIN_STEPS}"))
+    stats = [k for k in saved if "running_" in k or k.endswith("num_batches_tracked")]
+    moved = [k for k in stats if not torch.equal(
+        saved[k], torch.full_like(saved[k], 1.0 if k.endswith("running_var") else 0.0))]
+    if "decoder.get_depth.0.bias" not in saved or not stats or moved:
+        raise RuntimeError(f"TF cli.train: BN statistics moved: {moved[:5]}")
+    print(f"cli.train --model_flavor tf: {TF_TRAIN_STEPS} steps at batch {TRAIN_BATCH} (bf16, "
+          f"device_augment), losses {[loss for _, loss in steps]!r}, kernel launches {tf_train}; "
+          f"all {len(stats)} BN statistics of model-{TF_TRAIN_STEPS} as seeded")
+    tf_tmp.cleanup()
+
+    # (e) bf16 img/s at batch 8, TF graph beside PT graph, in turns.
+    graphs = {f: create_model(Config(encoder="densenet161_bts", bts_size=512,
+                                     model_flavor=f)).cuda().eval() for f in ("pt", "tf")}
+    runs = [(f, forward_rate(torch, graphs[f], 8)) for f in ("pt", "tf", "tf", "pt")]
+    tf_rates = {f: statistics.mean(r for g, r in runs if g == f) for f in graphs}
+    print(f"forward bf16 480x640 batch 8, PT graph {tf_rates['pt']!r} img/s, TF graph "
+          f"{tf_rates['tf']!r} img/s (runs in turn {runs!r}; {smi})")
+    del graphs
+    torch.cuda.empty_cache()
+
+    # (f) The native CPU LPG on the card's host.
+    lpg_cpu_rec = check_lpg_ffi(torch, lpg, lpg_cpu, _build)
+    print(f"native CPU LPG (g++ -O3, one thread) on {lpg_cpu_rec['cpu']}: three NYU sites at "
+          f"B=1, forward {lpg_cpu_rec['ms']!r} ms against plain {lpg_cpu_rec['plain_ms']!r} ms, "
+          f"gradient {lpg_cpu_rec['grad_ms']!r} ms against {lpg_cpu_rec['grad_plain_ms']!r} ms "
+          f"(PyTorch on {lpg_cpu_rec['torch_threads']} threads); on a CUDA tensor: "
+          f"{lpg_cpu_rec['cuda_refused']!r}")
+    print(json.dumps({"tf_forward_bf16_b8_img_per_s": tf_rates, "tf_launches": tf_launches,
+                      "lpg_cpu": lpg_cpu_rec, "device": smi}))
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -1516,6 +1803,9 @@ def main():
         rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
         return rec if unfused is None else {**rec, "unfused_ms": unfused}
 
+    # Phase 10's paths by the dtype they run the taps kernel in.
+    tf_dtype = {"bfloat16": ("bf16", "cli.test"), "float32": ("f32",)}
+
     def dense_record(impl, name, launches, n_fwd):
         r = dense[impl, name, 8]
         eo = ("layer_bound_ms",) if impl == "eo" else ()
@@ -1530,6 +1820,9 @@ def main():
             "b1": {k: dense[impl, name, 1][k] for k in ("max_abs_err", "ms", "plain_ms",
                                                         "cudnn_chain_ms", "bound_ms", *eo)},
             "densenet121": {f"b{b}": dense121[impl, name, b] for b in (8, 1)},
+            **({"tf_launches": {k: v["taps"] for k, v in tf_launches.items()
+                                if v["taps"] and k.startswith(tf_dtype[name])}}
+               if impl == "taps" else {}),
         }
 
     print(json.dumps({"kernels": [
@@ -1539,14 +1832,17 @@ def main():
          "bound_by": "bytes", "library_ms": None,
          "float32": lpg_record("float32"), "bare_float32": lpg_record("bare"),
          "train_sites": dict(zip(("ms", "plain_ms", "bound_ms"), lpg_fwd_train)),
-         "zoo_launches": {k: v["lpg"] for k, v in zoo_launches.items()}},
+         "zoo_launches": {k: v["lpg"] for k, v in zoo_launches.items()},
+         "tf_launches": {k: v["lpg"] for k, v in tf_launches.items()}},
         {"name": "lpg_backward", "route": "cuda", "source": LPG_SOURCE,
          "replaces": LPG_BWD_REPLACES, "grad_dtype": "bfloat16",
          "launches": train_path["lpg_backward"], "launches_per_step": 3,
          **lpg_bwd["bfloat16"], "bound_by": "bytes", "library_ms": None,
          "launch_floor_ms": floor, "float32": lpg_bwd["float32"],
          "zoo_launches": {k: v["lpg_backward"] for k, v in zoo_launches.items()
-                          if v["lpg_backward"]}},
+                          if v["lpg_backward"]},
+         "tf_launches": {k: v["lpg_backward"] for k, v in tf_launches.items()
+                         if v["lpg_backward"]}},
         dense_record("taps", "bfloat16", serving, forwards),
         dense_record("taps", "float32", f32_path["taps"], 1),
         dense_record("eo", "bfloat16", eo_path, 1),

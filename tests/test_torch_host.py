@@ -320,3 +320,200 @@ def test_gt_path_for_pred_matches(dataset, name):
     kw = dict(dataset=dataset, gt_path="/gt")
     assert png_eval.gt_path_for_pred(name, config.Config(**kw)) == jpng.gt_path_for_pred(
         name, jconfig.Config(**kw))
+
+
+# ------------------------------------------- data tools, cli.test, reproduction
+
+from bts_tpu.data.tools import download as jdownload  # noqa: E402
+from bts_tpu.data.tools import extract_nyu as jextract_nyu  # noqa: E402
+from bts_tpu.data.tools import make_manifests as jmake_manifests  # noqa: E402
+from bts_tpu_torch.data.tools import download, extract_nyu, make_manifests  # noqa: E402
+
+from test_data_tools import _write_pgm16, nyu_mat  # noqa: E402,F401 (fixture)
+
+
+def _tree(root):
+    """{relative path: bytes} of every file under root."""
+    return {os.path.relpath(os.path.join(d, f), root): open(os.path.join(d, f), "rb").read()
+            for d, _, files in os.walk(root) for f in files}
+
+
+def test_extract_nyu_and_nyu_manifest_match(nyu_mat, tmp_path):
+    """The copy writes bts_tpu's files byte for byte from
+    tests/test_data_tools.py's synthetic .mat, and the NYU manifest of the
+    tree and make_manifests' entry point print alike."""
+    labeled, splits, _, _ = nyu_mat
+    outs = [str(tmp_path / name) for name in ("port", "bts_tpu")]
+    assert extract_nyu.extract(labeled, splits, outs[0]) == jextract_nyu.extract(
+        labeled, splits, outs[1]) == 2
+    assert _tree(outs[0]) == _tree(outs[1]) and len(_tree(outs[0])) == 4
+    for split in ("train", "test"):
+        assert (make_manifests.nyu_manifest(outs[0], split)
+                == jmake_manifests.nyu_manifest(outs[0], split))
+    assert extract_nyu.main([]) == jextract_nyu.main([]) == 1
+
+
+def test_sync_nyu_raw_matches(tmp_path, capsys):
+    """NYU raw frame pairing on tests/test_data_tools.py's synthetic scene
+    (r-*.ppm, d-*.pgm): the same synced files, byte for byte."""
+    scene = tmp_path / "basement_0001a"
+    scene.mkdir()
+    rng = np.random.default_rng(1)
+    for i in range(15):
+        t = 1300000000.0 + i * 0.1
+        Image.fromarray(rng.integers(0, 255, size=(12, 16, 3), dtype=np.uint8)).save(
+            scene / f"r-{t:.6f}-{i}.ppm")
+        _write_pgm16(scene / f"d-{t + 0.02:.6f}-{i}.pgm",
+                     np.full((12, 16), int(1092.5 - 351.3 / 2.0), dtype=np.uint16))
+    outs = [str(tmp_path / name) for name in ("port", "bts_tpu")]
+    assert make_manifests.main(["sync", str(scene), outs[0]]) == 0
+    assert jmake_manifests.main(["sync", str(scene), outs[1]]) == 0
+    assert _tree(outs[0]) == _tree(outs[1]) and len(_tree(outs[0])) == 6
+    out = capsys.readouterr().out
+    assert out.count("Synced 3 frames") == 2
+
+
+def test_kitti_manifest_and_download_lists_match(tmp_path, capsys):
+    """The KITTI manifest of a miniature raw + gt tree (with right-camera
+    columns), the archive lists of the repo's eigen splits and the NYU list,
+    the aria2c list file and the entry points' output, against bts_tpu's
+    (no fetch)."""
+    raw, gt = tmp_path / "raw", tmp_path / "gt"
+    date, drive = "2011_09_26", "2011_09_26_drive_0002_sync"
+    for cam in ("image_02", "image_03"):
+        d = raw / date / drive / cam / "data"
+        d.mkdir(parents=True)
+        Image.new("RGB", (8, 4)).save(d / "0000000005.png")
+        g = gt / "train" / drive / "proj_depth" / "groundtruth" / cam
+        g.mkdir(parents=True)
+        Image.fromarray(np.zeros((4, 8), np.uint16)).save(g / "0000000005.png")
+    (raw / date / "calib_cam_to_cam.txt").write_text(
+        "P_rect_01: 1.0 0 0 0\nP_rect_02: 721.5377 0.0 609.5593 44.857\n"
+        "P_rect_03: 721.5377 0.0 609.5593 -339.5\n")
+    for use_right in (False, True):
+        got = make_manifests.kitti_manifest(str(raw), str(gt), use_right=use_right)
+        assert got == jmake_manifests.kitti_manifest(str(raw), str(gt), use_right=use_right)
+        assert len(got) == 1
+    split = os.path.join(ROOT, "train_test_inputs", "eigen_test_files_with_gt.txt")
+    urls = download.kitti_archives_for_manifest(split)
+    assert urls == jdownload.kitti_archives_for_manifest(split) and urls
+    assert download.nyu_archive_urls() == jdownload.nyu_archive_urls()
+    download.write_aria2_list(urls, str(tmp_path / "port.txt"))
+    jdownload.write_aria2_list(urls, str(tmp_path / "bts_tpu.txt"))
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "bts_tpu.txt").read_bytes()
+    capsys.readouterr()
+    for port_main, bts_tpu_main, argv in [
+            (download.main, jdownload.main, ["--kitti-list", split]),
+            (download.main, jdownload.main, ["--nyu-list"]),
+            (download.main, jdownload.main, []),
+            (make_manifests.main, jmake_manifests.main, ["kitti", str(raw), str(gt)]),
+            (make_manifests.main, jmake_manifests.main, ["nyu"])]:
+        rc = port_main(argv)
+        port_out = capsys.readouterr().out
+        assert (rc, port_out) == (bts_tpu_main(argv), capsys.readouterr().out), argv
+
+
+def _nyu_frames(root, n, h, w):
+    scene = root / "kitchen_0001"
+    scene.mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    lines = []
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            scene / f"rgb_{i:05d}.jpg")
+        Image.fromarray(rng.integers(500, 9000, (h, w), dtype=np.uint16)).save(
+            scene / f"sync_depth_{i:05d}.png")
+        lines.append(f"kitchen_0001/rgb_{i:05d}.jpg kitchen_0001/sync_depth_{i:05d}.png "
+                     "518.8579")
+    manifest = root / "files.txt"
+    manifest.write_text("\n".join(lines) + "\n")
+    return manifest
+
+
+def test_cli_test_runs_the_run_dirs_snapshot(tmp_path):
+    """A checkpoint inside a run dir that holds a code snapshot is served with
+    the snapshot's code: ``python -m bts_tpu_torch.cli.test`` re-executes
+    from it (a marker planted in the snapshot's apps/predict.py prints)."""
+    import subprocess
+    import sys
+
+    import torch
+
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.training.snapshot import snapshot_run
+
+    root = tmp_path / "data"
+    manifest = _nyu_frames(root, 2, 64, 96)
+    kw = dict(encoder="densenet121_bts", bts_size=128, dataset="nyu", data_path=str(root),
+              filenames_file=str(manifest), input_height=64, input_width=96,
+              log_directory=str(tmp_path / "logs"), model_name="snap")
+    run_dir = snapshot_run(config.Config(**kw))
+    with open(os.path.join(run_dir, "bts_tpu_torch", "apps", "predict.py"), "a") as f:
+        f.write('\nprint("predict from the snapshot")\n')
+    ckpt = os.path.join(run_dir, "model-4")
+    torch.save({"model": create_model(config.Config(**kw)).state_dict()}, ckpt)
+    argv = [f"--{k}={v}" for k, v in kw.items() if k != "log_directory"]
+    out = subprocess.run([sys.executable, "-m", "bts_tpu_torch.cli.test", "--device", "cpu",
+                          f"--checkpoint_path={ckpt}", *argv], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "OMP_NUM_THREADS": "1",
+                              "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert f"Using model snapshot from {run_dir}" in out.stdout
+    assert "predict from the snapshot" in out.stdout
+    assert len(os.listdir(tmp_path / "result_snap" / "raw")) == 2
+
+
+def _script_module(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "scripts",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("encoder,dataset,flavor", [
+    ("densenet161_bts", "nyu", "pt"), ("densenet161_bts", "kitti", "tf"),
+    ("resnext101_bts", "kitti", "pt"), ("mobilenetv2_bts", "nyu", "pt")])
+def test_reproduce_reference_check_metrics_matches(encoder, dataset, flavor):
+    """The port's reproduction keeps scripts/reproduce_reference.py's
+    published table, protocol and verdicts."""
+    from bts_tpu_torch.tools import reproduce_reference as port
+
+    script = _script_module("reproduce_reference")
+    assert (port.PUBLISHED, port.PROTOCOL, port.METRIC_INDEX) == (
+        script.PUBLISHED, script.PROTOCOL, script.METRIC_INDEX)
+    for measures in (np.linspace(0.05, 0.96, 9), np.full(9, 0.11), np.zeros(9)):
+        for tol in (0.002, 0.5):
+            assert port.check_metrics(measures, encoder, dataset, flavor, tol) == \
+                script.check_metrics(measures, encoder, dataset, flavor, tol)
+
+
+def test_reproduce_reference_end_to_end_on_synthetic_frames(tmp_path, monkeypatch, capsys):
+    """Predict and score 2 synthetic NYU 480x640 frames with a seeded
+    DenseNet121-BTS .pth on the CPU: the flavor and normalization resolved,
+    2 samples scored, and a miss against the published row (exit 1); an
+    orbax directory is refused with the export script named."""
+    import torch
+
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.tools import reproduce_reference
+
+    root = tmp_path / "data"
+    manifest = _nyu_frames(root, 2, 480, 640)
+    ckpt = str(tmp_path / "model.pth")
+    torch.save({"model": create_model(config.Config(encoder="densenet121_bts",
+                                                    bts_size=128)).state_dict()}, ckpt)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--encoder", "densenet121_bts", "--dataset", "nyu", "--data_path", str(root),
+            "--gt_path", str(root), "--filenames_file", str(manifest), "--bts_size", "128",
+            "--eval_batch_size", "2", "--device", "cpu"]
+    assert reproduce_reference.main([*argv, "--checkpoint", ckpt]) == 1
+    out = capsys.readouterr().out
+    assert "resolved flavor: pt; normalization: imagenet" in out
+    assert "2 samples scored" in out and "MISS" in out and out.rstrip().endswith("FAIL")
+    assert not (tmp_path / "result_reproduce").exists()
+    with pytest.raises(NotImplementedError, match="export_orbax_to_pth"):
+        reproduce_reference.main([*argv, "--checkpoint", str(tmp_path)])

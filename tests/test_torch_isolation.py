@@ -1,7 +1,8 @@
-"""bts_tpu_torch never loads jax, flax or anything of bts_tpu: every slice
-module, and parsing the NYU test args file (whose --checkpoint_path would
-make bts_tpu's Config.validate sniff it through jax-backed modules). In a
-subprocess, because tests/conftest.py imports jax in this one.
+"""bts_tpu_torch never loads jax, flax, orbax, tensorflow or anything of
+bts_tpu: every slice module, and parsing the NYU test args file (whose
+--checkpoint_path would make bts_tpu's Config.validate sniff it through
+jax-backed modules) and a TF-flavor one. In a subprocess, because
+tests/conftest.py imports jax in this one.
 
 Also: an installed package carries every file its kernels' sources include,
 and builds them outside the package's directory.
@@ -28,6 +29,7 @@ SLICE_MODULES = [
     "bts_tpu_torch.ops",
     "bts_tpu_torch.ops.lpg",
     "bts_tpu_torch.ops.lpg_cuda",
+    "bts_tpu_torch.ops.lpg_cpu",
     "bts_tpu_torch.ops.fused_dense",
     "bts_tpu_torch.ops.fused_dense_cuda",
     "bts_tpu_torch.ops._build",
@@ -36,6 +38,10 @@ SLICE_MODULES = [
     "bts_tpu_torch.data.transforms",
     "bts_tpu_torch.data.loader",
     "bts_tpu_torch.data.device_augment",
+    "bts_tpu_torch.data.tools",
+    "bts_tpu_torch.data.tools.download",
+    "bts_tpu_torch.data.tools.extract_nyu",
+    "bts_tpu_torch.data.tools.make_manifests",
     "bts_tpu_torch.utils",
     "bts_tpu_torch.utils.colorize",
     "bts_tpu_torch.models",
@@ -46,6 +52,7 @@ SLICE_MODULES = [
     "bts_tpu_torch.models.decoder",
     "bts_tpu_torch.models.bts",
     "bts_tpu_torch.models.convert",
+    "bts_tpu_torch.models.convert_tf",
     "bts_tpu_torch.apps.predict",
     "bts_tpu_torch.apps.sequence",
     "bts_tpu_torch.apps.live3d",
@@ -77,6 +84,7 @@ SLICE_MODULES = [
     "bts_tpu_torch.cli.eval_schedule",
     "bts_tpu_torch.tools.profile_forward",
     "bts_tpu_torch.tools.profile_train",
+    "bts_tpu_torch.tools.reproduce_reference",
 ]
 
 
@@ -87,41 +95,48 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "from bts_tpu_torch.config import parse_args\n"
         "cfg = parse_args(['configs/arguments_test_nyu.txt'])\n"
+        "tf_cfg = parse_args(['@configs/arguments_test_nyu.txt', '--model_flavor', 'tf'])\n"
         "bts = sorted(m for m in sys.modules if m == 'bts_tpu' or m.startswith('bts_tpu.'))\n"
-        "print(json.dumps({'jax': 'jax' in sys.modules, 'flax': 'flax' in sys.modules,\n"
-        "  'bts_tpu': bts,\n"
+        "print(json.dumps({m: m in sys.modules for m in ('jax', 'flax', 'orbax', 'tensorflow')}\n"
+        "  | {'bts_tpu': bts,\n"
         "  'flavor': cfg.model_flavor, 'norm': cfg.resolved_normalization,\n"
-        "  'encoder': cfg.encoder}))\n"
+        "  'encoder': cfg.encoder, 'tf': [tf_cfg.model_flavor, tf_cfg.normalization]}))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "jax": False, "flax": False, "bts_tpu": [], "flavor": "pt", "norm": "imagenet",
-        "encoder": "densenet161_bts",
+        "jax": False, "flax": False, "orbax": False, "tensorflow": False, "bts_tpu": [],
+        "flavor": "pt", "norm": "imagenet", "encoder": "densenet161_bts",
+        "tf": ["tf", "caffe"],
     }
 
 
-def test_parse_args_device_and_checks(tmp_path):
+def test_parse_args_device_and_checks(tmp_path, monkeypatch):
     cfg, device = parse_args_with_device(["--device", "cpu", "--normalization", "caffe"])
     assert device == "cpu" and cfg.normalization == "caffe"
     assert parse_args_with_device([])[1] == ""
     with pytest.raises(ValueError, match="unknown encoder 'resnet152_bts'"):
         parse_args(["--encoder", "resnet152_bts"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        parse_args(["--model_flavor", "tf"])
-    with pytest.raises(NotImplementedError, match="queue 2, item 4"):
-        parse_args(["--lpg_impl", "ffi"])
+    tf = parse_args(["--model_flavor", "tf"])
+    assert (tf.model_flavor, tf.normalization) == ("tf", "caffe")
+    assert parse_args(["--lpg_impl", "ffi"]).lpg_impl == "ffi"
     with pytest.raises(ValueError, match="lpg_impl"):
         parse_args(["--lpg_impl", "triton"])
     with pytest.raises(ValueError, match="dataset"):
         parse_args(["--dataset", "nyuv2"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="scripts/export_orbax_to_pth.py"):
         parse_args(["--checkpoint_path", str(tmp_path)])
+    # A TF prefix is read (its flavor sniffed) with tensorflow, and without
+    # it the sniff raises naming tensorflow: never taken for the PT graph.
     (tmp_path / "model.index").write_text("")
-    with pytest.raises(NotImplementedError, match="TF checkpoint"):
-        parse_args(["--checkpoint_path", str(tmp_path / "model")])
+    with monkeypatch.context() as patch:
+        patch.setitem(sys.modules, "tensorflow", None)
+        with pytest.raises(ImportError, match="tensorflow"):
+            parse_args(["--checkpoint_path", str(tmp_path / "model")])
+    assert parse_args(["--checkpoint_path", str(tmp_path / "model"),
+                       "--model_flavor", "tf"]).resolved_flavor == "tf"
 
 
 def test_every_csrc_include_is_package_data():

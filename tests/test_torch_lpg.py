@@ -138,9 +138,14 @@ def test_kernel_scale_is_pytorchs_f32_reciprocal():
 
 
 def test_bad_impls_raise(rng):
+    """An unknown impl raises; 'ffi' (the native CPU kernel) runs on a CPU
+    tensor (tests/test_torch_lpg_cpu.py holds it to its plain version) and
+    raises for a tensor on another device, without copying it to the host."""
     pe = torch.from_numpy(_random_plane_eq(rng))
-    with pytest.raises(NotImplementedError, match="queue 2, item 4"):
-        tlpg.local_planar_guidance(pe, 2, impl="ffi")
+    torch.testing.assert_close(tlpg.local_planar_guidance(pe, 2, impl="ffi"),
+                               tlpg.lpg_reference(pe, 2), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        tlpg.local_planar_guidance(pe.to("meta"), 2, impl="ffi")
     with pytest.raises(ValueError):
         tlpg.local_planar_guidance(pe, 2, impl="triton")
 
