@@ -96,9 +96,9 @@ class Config:
     focal: float = -1.0
 
     # Additions of bts_tpu (no reference equivalent); kept so its args
-    # files parse. The port reads compute_dtype, eval_batch_size, seed,
-    # lpg_impl, model_flavor, device_augment and adam_bf16_moments; the
-    # rest are TPU layout options or belong to parts not ported yet.
+    # files parse. The port reads all but the TPU layout options
+    # mesh_axis_name, fast_tail, remat, remat_policy, remat_scope and
+    # async_checkpoint.
     num_devices: int = 0
     mesh_axis_name: str = "data"
     compute_dtype: str = "float32"

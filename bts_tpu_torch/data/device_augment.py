@@ -163,17 +163,19 @@ def augment_batch(
     dataset: str = "nyu",
     do_random_rotate: bool = True,
     normalization: str = "imagenet",
+    first: int = 0,
 ):
     """(B, H, W, 3) raw [0,1] images + (B, H, W, 1) depths -> cropped,
     augmented, normalized (B, out_h, out_w, *), one draw per sample from
-    ``gen``."""
+    ``gen``. The batch may be a share of a larger (global) batch that starts
+    at sample ``first``: the draws of the samples before it are made and
+    skipped, so each sample gets the draw it gets in the whole batch."""
     b, src_h, src_w, _ = images.shape
+    params = [sample_params(gen, src_h, src_w, out_h, out_w, degree, dataset, do_random_rotate)
+              for _ in range(first + b)][first:]
     out = [
-        apply_augment(
-            images[i], depths[i],
-            sample_params(gen, src_h, src_w, out_h, out_w, degree, dataset, do_random_rotate),
-            out_h, out_w, skip_rotate=not do_random_rotate, normalization=normalization,
-        )
-        for i in range(b)
+        apply_augment(images[i], depths[i], p, out_h, out_w, skip_rotate=not do_random_rotate,
+                      normalization=normalization)
+        for i, p in enumerate(params)
     ]
     return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])

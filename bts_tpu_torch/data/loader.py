@@ -49,8 +49,11 @@ class TrainLoader:
     def steps_per_epoch(self) -> int:
         """Floor division: the final partial batch of each epoch is dropped
         (a fixed batch shape, and no padding to bias BN's batch statistics),
-        as in ``bts_tpu``; the reference keeps it (drop_last=False)."""
-        return len(self._shard_indices(0)) // self.host_batch
+        as in ``bts_tpu``; the reference keeps it (drop_last=False). Every
+        shard takes the smallest shard's count, so data-parallel ranks run
+        the same steps (``bts_tpu`` counts its own shard's: where the shards
+        differ in length, its ranks would part)."""
+        return len(self.entries) // max(self.num_shards, 1) // self.host_batch
 
     def _shard_indices(self, epoch: int) -> np.ndarray:
         """Per-epoch deterministic shuffle, then this process's shard."""
@@ -83,7 +86,7 @@ class TrainLoader:
         """Yield batches {'image' (B,H,W,3), 'depth' (B,H,W,1), 'focal' (B,)};
         sample i of the epoch draws from default_rng((seed, epoch, index))."""
         idx = self._shard_indices(epoch)
-        n = len(idx) // self.host_batch * self.host_batch
+        n = self.steps_per_epoch() * self.host_batch
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
 
             def submit(i):

@@ -10,9 +10,12 @@ table. Here:
   * with ``--device_eval`` (the default) the metrics run on the card
     (``evaluation/device_eval.py``); else each sample goes through the numpy
     protocol (``evaluation/protocol.py``), bit-matching the reference;
-  * one process by default; ``process_info`` and ``allgather_fn`` are
-    injectable, so the cross-process sum can be simulated in one process.
-    Data parallelism is ROADMAP.md queue 1, item 10.
+  * under data parallelism each rank evaluates its exact-count shard
+    (``EvalLoader``: rank r takes samples r::world), and the ranks' sums and
+    counts are all-gathered and added (the reference's all_reduce,
+    pytorch/bts_main.py:302-304); only rank 0 returns and prints them.
+    ``process_info`` and ``allgather_fn`` are injectable, so the
+    cross-process sum can also be simulated in one process.
 """
 
 from __future__ import annotations
@@ -22,12 +25,26 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bts_tpu_torch.apps.predict import compute_context, forward_padded
 from bts_tpu_torch.config import Config
 from bts_tpu_torch.data.loader import EvalLoader
 from bts_tpu_torch.evaluation.metrics import EVAL_METRICS, compute_errors
 from bts_tpu_torch.evaluation.protocol import prepare_pred_gt
+from bts_tpu_torch.parallel.mesh import process_shard_info
+
+
+def allgather_vector(vec: np.ndarray, group=None) -> np.ndarray:
+    """(10,) on each rank of ``group`` (the default group when None) ->
+    (world, 10) f32, in rank order. On the card under NCCL, on the host
+    under gloo."""
+    backend = dist.get_backend(group)
+    device = torch.device("cuda", torch.cuda.current_device()) if backend == "nccl" else "cpu"
+    t = torch.as_tensor(np.asarray(vec, np.float32), device=device)
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t, group=group)
+    return torch.stack(out).cpu().numpy()
 
 
 def make_eval_forward(model: torch.nn.Module, cfg: Config) -> Callable:
@@ -67,14 +84,14 @@ def run_online_eval(
 
     ``forward`` (default ``make_eval_forward(model, cfg)``) maps a batch's
     (image, focal) to depth (B,H,W), a tensor or an array. ``process_info``
-    = (nproc, pidx) and ``allgather_fn`` (vec (10,) -> (nproc, 10)) simulate
-    the cross-process sum in one process; nproc > 1 needs ``allgather_fn``.
+    = (nproc, pidx) defaults to the process group's (``process_shard_info``),
+    and ``allgather_fn`` (vec (10,) f32 -> (nproc, 10)) to
+    ``allgather_vector`` over it; injected, they simulate the cross-process
+    sum in one process.
     """
-    nproc, pidx = process_info if process_info is not None else (1, 0)
+    nproc, pidx = process_info if process_info is not None else process_shard_info()
     if nproc > 1 and allgather_fn is None:
-        raise NotImplementedError(
-            f"{nproc} processes need an allgather_fn: data parallelism is not ported yet, "
-            "ROADMAP.md queue 1, item 10")
+        allgather_fn = allgather_vector
     if loader is None:
         loader = EvalLoader(cfg, "online_eval", num_shards=nproc, shard_index=pidx)
     if forward is None:
@@ -137,8 +154,10 @@ def run_online_eval(
             count += c
 
     if nproc > 1:
-        # The reference's dist.all_reduce(SUM) (pytorch/bts_main.py:302-304).
-        vec = np.asarray(allgather_fn(np.concatenate([sums, [count]]))).sum(axis=0)
+        # The reference's dist.all_reduce(SUM) (pytorch/bts_main.py:302-304),
+        # sent in f32 as bts_tpu sends it.
+        vec = np.concatenate([sums, [count]]).astype(np.float32)
+        vec = np.asarray(allgather_fn(vec)).sum(axis=0)
         sums, count = vec[:9].astype(np.float64), int(round(float(vec[9])))
 
     if pidx != 0:

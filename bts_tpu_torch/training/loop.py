@@ -20,8 +20,17 @@ Reference behaviours (pytorch/bts_main.py:322-604):
     for each metric that improved, its previous best deleted.
 
 The loop reads each step's loss back three steps late, so the host does not
-wait for the card every step. More than one device (ROADMAP.md queue 1,
-item 10) is not ported yet.
+wait for the card every step.
+
+Data parallelism (``dp``: ``parallel/launch.py`` or a launcher's group):
+every rank runs this loop on its shard of each epoch and of the eval split
+(``TrainLoader``/``EvalLoader`` with ``num_shards=world``), and the step is
+the global batch's (``training/state.py``). Rank 0 alone snapshots the run
+directory, prints, writes TensorBoard, profiles and saves or prunes
+checkpoints (``bts_tpu/training/loop.py:227-229``). The loss is the global
+loss on every rank, so every rank aborts on a NaN at the same step; the
+preemption flag is agreed (any rank's SIGTERM stops all) at the step
+boundary where the loop checks it.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from bts_tpu_torch.evaluation.metrics import EVAL_METRICS
 from bts_tpu_torch.evaluation.offline import eval_summary_writer
 from bts_tpu_torch.evaluation.online import make_eval_forward, run_online_eval
 from bts_tpu_torch.models.bts import create_model
+from bts_tpu_torch.parallel.mesh import DataParallel, agree_any
 from bts_tpu_torch.training import checkpoint as ckpt_lib
 from bts_tpu_torch.training.lr import polynomial_decay_host
 from bts_tpu_torch.training.optim import create_optimizer
@@ -122,13 +132,15 @@ def param_sum_avg(model: torch.nn.Module) -> float:
     return float(total) / max(len(params), 1)
 
 
-def warm_start(model: torch.nn.Module, path: str, cfg: Optional[Config] = None) -> None:
+def warm_start(model: torch.nn.Module, path: str, cfg: Optional[Config] = None,
+               verbose: bool = True) -> None:
     """``--pretrained_model`` (tensorflow/bts_main.py:228-232): a TF
     checkpoint holding the decoder (``decoder/Conv/``) loads strictly
     (``convert_tf.convert_full_tf``); any other TF checkpoint warm-starts the
     encoder by name (``warm_start_from_tf``); both read ``cfg``'s encoder and
     bts_size. A torch .pth loads the tensors whose names and shapes match the
-    model's."""
+    model's. ``verbose`` prints what was loaded."""
+    say = print if verbose else (lambda *a: None)
     from bts_tpu_torch.models import convert_tf
     from bts_tpu_torch.models.convert import load_checkpoint
 
@@ -140,48 +152,53 @@ def warm_start(model: torch.nn.Module, path: str, cfg: Optional[Config] = None) 
         if any("decoder/Conv/" in n for n in tf_vars):
             state, report = convert_tf.convert_full_tf(tf_vars, own, cfg.encoder, cfg.bts_size)
             model.load_state_dict(state, strict=True)
-            print(f"Loaded full TF BTS checkpoint '{path}' ({len(report['loaded'])} tensors)")
+            say(f"Loaded full TF BTS checkpoint '{path}' ({len(report['loaded'])} tensors)")
             return
         state, report = convert_tf.warm_start_from_tf(tf_vars, own, cfg.encoder)
         model.load_state_dict(state, strict=True)
         for name in report["unmatched_checkpoint"]:
             # The reference's wording, tensorflow/bts_main.py:119.
-            print(f"{name} is in pretrained model but not in current training model")
-        print(f"Warm-started {len(report['loaded'])} tensors from TF checkpoint '{path}'")
+            say(f"{name} is in pretrained model but not in current training model")
+        say(f"Warm-started {len(report['loaded'])} tensors from TF checkpoint '{path}'")
         return
     state = {k: v for k, v in load_checkpoint(path).items()
              if k in own and tuple(v.shape) == tuple(own[k].shape)}
     model.load_state_dict(state, strict=False)
-    print(f"Warm-started from '{path}'")
+    say(f"Warm-started from '{path}'")
 
 
 def train(cfg: Config, max_steps: Optional[int] = None,
-          device: Optional[torch.device] = None) -> int:
-    """Run training on ``device`` (default the CUDA card). Returns the final
-    global step, or -1 on a NaN loss (pytorch/bts_main.py:464-466)."""
-    if cfg.num_devices > 1:
-        raise NotImplementedError(
-            f"num_devices {cfg.num_devices}: data parallelism is not ported yet: "
-            "ROADMAP.md queue 1, item 10"
-        )
-    device = torch.device(device or "cuda")
-    run_dir = snapshot_run(cfg) if cfg.log_directory else ""
+          device: Optional[torch.device] = None, dp: Optional[DataParallel] = None) -> int:
+    """Run training on ``device`` (default the CUDA card; ``dp.device`` for a
+    rank of a data-parallel group). Returns the final global step, or -1 on
+    a NaN loss (pytorch/bts_main.py:464-466)."""
+    world, rank = (dp.world, dp.rank) if dp is not None else (1, 0)
+    if cfg.num_devices > 1 and cfg.num_devices != world:
+        raise ValueError(f"num_devices {cfg.num_devices}, but this process is one of {world} "
+                         "ranks: start the ranks with cli.train or parallel.launch.spawn")
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {world} ranks")
+    primary = rank == 0
+    say = print if primary else (lambda *a, **k: None)
+    device = torch.device(dp.device if dp is not None else (device or "cuda"))
+    run_dir = snapshot_run(cfg) if cfg.log_directory and primary else ""
 
     model = create_model(cfg)
-    print(f"Total number of parameters: {sum(p.numel() for p in model.parameters())}")
+    say(f"Total number of parameters: {sum(p.numel() for p in model.parameters())}")
     if cfg.pretrained_model:
-        warm_start(model, cfg.pretrained_model, cfg)
+        warm_start(model, cfg.pretrained_model, cfg, verbose=primary)
     model.to(device)
 
-    loader = TrainLoader(cfg)
+    loader = TrainLoader(cfg, num_shards=world, shard_index=rank)
     steps_per_epoch = loader.steps_per_epoch()
     num_total_steps = cfg.num_epochs * steps_per_epoch
     optimizer, _ = create_optimizer(cfg, model, num_total_steps)
     state, best = ckpt_lib.restore_training_start(
         cfg, TrainState(model, optimizer), ckpt_lib.BestTracker())
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, dp)
     logger = TrainLogger(cfg, run_dir)
-    eval_loader = EvalLoader(cfg, "online_eval") if cfg.do_online_eval else None
+    eval_loader = (EvalLoader(cfg, "online_eval", num_shards=world, shard_index=rank)
+                   if cfg.do_online_eval else None)
     eval_forward = make_eval_forward(model, cfg) if cfg.do_online_eval else None
     host_lr = polynomial_decay_host(cfg.learning_rate, cfg.resolved_end_learning_rate,
                                     num_total_steps, power=0.9)
@@ -199,6 +216,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         """Read back and log step p. False on a NaN loss (abort)."""
         nonlocal panel_forward
         loss = float(p["loss"])
+        if not primary:
+            return not np.isnan(loss)
         print(f"[epoch][s/s_per_e/gs]: [{p['epoch']}][{p['sie']}/{steps_per_epoch}/{p['gs']}], "
               f"lr: {p['lr']:.12f}, loss: {loss:.12f}")
         if np.isnan(loss):
@@ -233,6 +252,8 @@ def train(cfg: Config, max_steps: Optional[int] = None,
         """Online eval at ``step``: the measures logged, and a best
         checkpoint for each metric that improved (pytorch/bts_main.py:505-545)."""
         measures = run_online_eval(state.model, cfg, eval_loader, eval_forward)
+        if measures is None:  # not rank 0: the group's ranks sent it their sums
+            return
         logger.eval_scalars(step, measures)
         for mi, old_step, old_value in best.update(measures, step):
             if not run_dir:
@@ -257,7 +278,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     try:
         while epoch < cfg.num_epochs:
             for batch in loader.epoch(epoch):
-                if cfg.profile_steps:
+                if cfg.profile_steps and primary:
                     if global_step == PROFILE_START_STEP and profiler is None:
                         profiler = start_profiler(cfg.profile_dir, device)
                     elif profiler is not None and global_step >= (
@@ -309,7 +330,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                     evaluate(global_step)
 
                 model_just_loaded = False
-                if preempt_guard.requested:
+                if agree_any(preempt_guard.requested, dp):
                     if not drain():
                         return finish(-1)
                     if run_dir:

@@ -15,12 +15,19 @@ bn_init_as_tf, pytorch/bts.py:26-31; the TF reference always trains so,
 tensorflow/bts.py:188-192, tensorflow/bts_main.py:167-168). The dense blocks take the unfused cuDNN modules under
 grad (``DenseBlock``'s ``auto``): the fused kernels are inference-only, as
 their Pallas originals were.
+
+Under data parallelism (``make_train_step(cfg, dp)`` with more than one
+rank) each rank holds its share of the global batch, and the step is the
+single-process step on the global batch (``parallel/mesh.py``): the forward
+goes through ``wrap_data_parallel``'s DDP module (global-batch BN, gradients
+averaged), the silog loss is the global batch's, and the augmentation draws
+the global batch's parameters and applies the rank's share.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +36,7 @@ from torch.profiler import record_function
 
 from bts_tpu_torch.config import Config
 from bts_tpu_torch.data.device_augment import augment_batch
+from bts_tpu_torch.parallel.mesh import DataParallel, wrap_data_parallel
 from bts_tpu_torch.training.loss import silog_loss
 from bts_tpu_torch.training.optim import AdamW
 
@@ -78,48 +86,69 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
     return out
 
 
-def device_view(batch: Dict[str, torch.Tensor], cfg: Config, step: int
+def device_view(batch: Dict[str, torch.Tensor], cfg: Config, step: int, rank: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(image NCHW, depth NHW1) as the model sees them at ``step``: the
     batch itself, or its device augmentation under ``--device_augment``
-    (rotation stays on the host: do_random_rotate=False here)."""
+    (rotation stays on the host: do_random_rotate=False here). The batch is
+    rank ``rank``'s share of the global batch: its samples take the global
+    batch's draws from ``rank * len(batch)`` on."""
     image, depth = batch["image"], batch["depth"]
     if cfg.device_augment:
         image, depth = augment_batch(
             augment_generator(cfg.seed, step), image, depth,
             out_h=cfg.input_height, out_w=cfg.input_width, degree=cfg.degree,
             dataset=cfg.dataset, do_random_rotate=False,
-            normalization=cfg.resolved_normalization,
+            normalization=cfg.resolved_normalization, first=rank * image.shape[0],
         )
     return image.permute(0, 3, 1, 2), depth
 
 
 def forward_loss(model: nn.Module, image: torch.Tensor, depth: torch.Tensor,
-                 focal: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """The model's forward and the silog loss of its final depth, in f32."""
+                 focal: torch.Tensor, cfg: Config, group=None) -> torch.Tensor:
+    """The model's forward and the silog loss of its final depth, in f32;
+    over the ranks of ``group`` when one is given."""
     dtype = autocast_dtype(cfg)
     with torch.autocast(image.device.type, dtype=dtype or torch.float32,
                         enabled=dtype is not None):
         outs = model(image, focal)
     depth_est = outs[4][:, 0]
     depth_gt = depth[..., 0]
-    return silog_loss(depth_est, depth_gt, depth_gt > cfg.depth_mask_min, cfg.variance_focus)
+    return silog_loss(depth_est, depth_gt, depth_gt > cfg.depth_mask_min, cfg.variance_focus,
+                      group)
 
 
-def make_train_step(cfg: Config) -> Callable[[TrainState, Dict[str, torch.Tensor]], torch.Tensor]:
+def make_train_step(cfg: Config, dp: Optional[DataParallel] = None
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]], torch.Tensor]:
     """(state, device batch) -> loss (a device tensor, not read back). The
     state advances in place; after the step each parameter's ``.grad``
     holds the step's gradient. Its four parts are ``torch.profiler`` ranges
     (``train_step/augment``, ``/forward``, ``/backward``, ``/optimizer``),
-    which cost nothing measurable when no profiler runs."""
+    which cost nothing measurable when no profiler runs.
+
+    With ``dp``, the batch is this rank's share of the global batch and the
+    step is the global batch's: the first call wraps ``state.model``
+    (``wrap_data_parallel``; ``state.model`` stays the plain module, so
+    checkpoints and eval see plain names), and the loss is the global loss
+    on every rank. The all-reduces in the loss and in BN sum the ranks'
+    incoming gradients in their backward, so each rank's gradient is
+    ``world`` times its share, and DDP's average of the ranks' gradients is
+    the global batch's gradient."""
+    multi = dp is not None
+    group = dp.group if multi else None
+    rank = dp.rank if multi else 0
+    wrapped = {}  # the plain module -> the module the forward goes through
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if multi and wrapped.get("plain") is not state.model:
+            wrapped.update(plain=state.model, forward=wrap_data_parallel(state.model, dp))
         with record_function("train_step/augment"):
             set_bn_mode(state.model, cfg)
-            image, depth = device_view(batch, cfg, state.step)
+            image, depth = device_view(batch, cfg, state.step, rank)
         state.optimizer.zero_grad()
         with record_function("train_step/forward"):
-            loss = forward_loss(state.model, image, depth, batch["focal"], cfg)
+            model = wrapped["forward"] if multi else state.model
+            loss = forward_loss(model, image, depth, batch["focal"], cfg, group)
         with record_function("train_step/backward"):
             loss.backward()
         with record_function("train_step/optimizer"):

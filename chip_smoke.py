@@ -134,15 +134,42 @@ Phases, in order; any failure raises and the script exits nonzero:
        (theta at most pi/6; forward at the same tolerance, gradient at
        ``LPG_BWD_TOL`` of its terms' magnitude, the sums run in another
        order); both timed on the host against the plain versions, the CPU
-       named from /proc/cpuinfo; ``impl="ffi"`` on a CUDA tensor raises.
-Each phase's seconds are printed as it ends, and as JSON after phase 10.
+       named from /proc/cpuinfo; ``impl="ffi"`` on a CUDA tensor raises;
+11. data parallelism (``bts_tpu_torch/parallel``; the script needs one card
+    and NCCL refuses two ranks on one device, so two ranks share ``cuda:0``
+    over gloo, which stages CUDA tensors through the host; each rank counts
+    its own launches and reports them):
+   (a) DenseNet161-BTS on the NYU recipe at full width (416x544 crops of
+       427x565 frames, ``--device_augment``), a global batch of 4, 2 a
+       rank: one f32 step (TF32 off) on each rank against the single-process
+       step on the card on the whole batch (``DP_TOL``: loss rtol 1e-4,
+       every parameter and BN statistic atol 1e-4; the two ranks' states
+       equal), then two bf16 steps with finite losses; 3 LPG forward and 3
+       LPG backward launches a rank a step;
+   (b) one rank over NCCL (this process, its group left after): its DDP
+       step against the plain step on the same batch of 2, deterministic
+       cuDNN (loss rtol 1e-5, state atol 1e-5);
+   (c) ``cli.train.main`` with ``--num_devices 2 --device cuda:0,cuda:0
+       --dist_backend gloo`` on the recipe for 4 steps, an online eval every
+       2 steps over 8 synthetic 480x640 frames at batch 1 (4 a rank): finite
+       losses each logged once, each eval over 8, one run dir, a best
+       checkpoint per metric with no DDP ``module.`` names, and a fresh
+       single-process model on each giving the measure the checkpoint's best
+       tracker logged (rtol 1e-5);
+   (d) ``make_sharded_forward`` on ``[cuda:0, cuda:0]``, DenseNet161-BTS at
+       480x640, batch 8: f32 within 1e-4 m and bf16 within 0.15 m of the
+       single f32 forward, 78 taps and 3 LPG launches a replica;
+   (e) the two ranks' step wall ms beside the single process's (a check:
+       gloo stages gradients through the host).
+Each phase's seconds are printed as it ends, and as JSON after phase 11.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
 for f32 taps and f32 eo, from the bf16 eo forward of phase 6 for bf16 eo,
 from phase 7's ``cli.train`` for the LPG backward, with its per-site times
 and the launch floor; both LPG records carry phase 9's counts by path, and
-they and the taps records phase 10's under ``tf_launches``;
+they and the taps records phase 10's under ``tf_launches`` and phase 11's
+under ``dp_launches``;
 ``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
 record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
 its own work, ``layer_bound_ms`` the taps form's); the last line is
@@ -956,6 +983,146 @@ def cpu_name():
     return f"{name}, {os.cpu_count()} logical CPUs ({os.uname().machine})"
 
 
+# Phase 11: data parallelism. Two ranks share the one card over gloo (NCCL
+# refuses two ranks on one device); one rank runs over NCCL.
+DP_RANKS = 2
+DP_BATCH = 4  # the recipe's global batch: 2 a rank
+DP_TOL = dict(rtol=1e-4, atol=1e-4)  # phase 7(b)'s: loss rtol, state atol
+DP_NCCL_ATOL = 1e-5
+DP_EVAL_FREQ, DP_STEPS = 2, 4
+DP_SERVE_BATCH = 8
+
+
+def dp_expected_launches(steps=0, forwards=0, replicas=1, layers=DENSE_LAYERS):
+    """The kernel launches of one rank's ``steps`` train steps (3 LPG forward
+    and 3 LPG backward each, no fused dense layer) and of ``forwards``
+    inference forwards on each of ``replicas`` replicas (``layers`` taps and
+    3 LPG each)."""
+    return {"taps": layers * forwards * replicas, "eo": 0,
+            "lpg": 3 * (steps + forwards * replicas), "lpg_backward": 3 * steps}
+
+
+def kernel_counts():
+    """The port's launch counters in this process."""
+    from bts_tpu_torch.ops import fused_dense_cuda, lpg_cuda
+
+    return {"taps": fused_dense_cuda.TAPS_LAUNCHES, "eo": fused_dense_cuda.EO_LAUNCHES,
+            "lpg": lpg_cuda.LAUNCHES, "lpg_backward": lpg_cuda.BWD_LAUNCHES}
+
+
+def reset_kernel_counts():
+    from bts_tpu_torch.ops import fused_dense_cuda, lpg_cuda
+
+    lpg_cuda.LAUNCHES = lpg_cuda.BWD_LAUNCHES = 0
+    fused_dense_cuda.TAPS_LAUNCHES = fused_dense_cuda.EO_LAUNCHES = 0
+
+
+def state_digest(state):
+    """One sha256 over every tensor of a state dict, in key order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_diff(got, want):
+    """(largest abs difference, its key) over the floating entries; the
+    others must be equal."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        g, w = got[k].detach().cpu(), w.detach().cpu()
+        if not w.is_floating_point():
+            if not bool((g == w).all()):
+                raise RuntimeError(f"{k}: {g.tolist()} != {w.tolist()}")
+            continue
+        worst = max(worst, (float((g.double() - w.double()).abs().max()), k))
+    return worst
+
+
+def dp_train_rank(path, cfg, dp):
+    """Phase 11(a) and (b), one rank: the parent's inputs (``path``) hold the
+    seeded state, the global batch and what to run. An f32 step (TF32 off)
+    through ``make_train_step(cfg, dp)`` on the rank's share; its loss, its
+    state's largest difference from the parent's single-process step and a
+    digest of it; the launches. Then (a) two bf16 steps of a fresh copy, the
+    second timed, or (b) the plain step (no ``dp``) from the same state on
+    the same batch, deterministic cuDNN in both."""
+    import torch
+
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.parallel.mesh import local_slice
+    from bts_tpu_torch.training.optim import create_optimizer
+    from bts_tpu_torch.training.state import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = torch.load(path, weights_only=False)
+    torch.backends.cudnn.deterministic = inputs["deterministic"]
+    local = {k: v.to(dp.device) for k, v in
+             local_slice(inputs["batch"], dp.world, dp.rank).items()}
+
+    def fresh(c):
+        model = create_model(c).to(dp.device)
+        model.load_state_dict(inputs["state"], strict=True)
+        optimizer, _ = create_optimizer(c, model, 1000)
+        return TrainState(model, optimizer)
+
+    def timed_step(step, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(st, local))  # the readback waits for the step
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    st = fresh(cfg)
+    reset_kernel_counts()
+    loss, ms = timed_step(make_train_step(cfg, dp), st)
+    after = st.model.state_dict()
+    out["f32"] = {"loss": loss, "ms": ms, "launches": kernel_counts(),
+                  "diff": state_diff(after, inputs["want"]) if inputs["want"] else None,
+                  "digest": state_digest(after)}
+    del st
+    if inputs["plain"]:
+        st = fresh(cfg)
+        loss, ms = timed_step(make_train_step(cfg), st)
+        out["plain"] = {"loss": loss, "ms": ms, "diff": state_diff(st.model.state_dict(), after)}
+        del st
+    else:
+        bcfg = cfg.replace(compute_dtype="bfloat16")
+        st = fresh(bcfg)
+        step = make_train_step(bcfg, dp)
+        reset_kernel_counts()
+        runs = [timed_step(step, st) for _ in range(2)]
+        out["bf16"] = {"losses": [r[0] for r in runs], "ms": runs[1][1],
+                       "launches": kernel_counts()}
+    return out
+
+
+@contextlib.contextmanager
+def captured_fd_stdout(into):
+    """Send file descriptor 1 (this process's and its children's output) to a
+    file while the block runs; then echo it, and append it to ``into``."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+            f.seek(0)
+            text = f.read().decode(errors="replace")
+            sys.stdout.write(text)
+            into.append(text)
+
+
 def check_lpg_ffi(torch, lpg, lpg_cpu, build):
     """Phase 10(f): the native CPU LPG built with g++, held against the plain
     versions at tests/test_lpg_ffi.py's shapes and tolerances (r = 8, 4, 2),
@@ -1019,6 +1186,218 @@ def check_lpg_ffi(torch, lpg, lpg_cpu, build):
     else:
         raise RuntimeError("lpg_impl 'ffi' took a CUDA tensor")
     return rec
+
+
+def phase11(torch, Config, parse_args, create_model, create_optimizer, TrainState,
+            make_train_step, cli_train, run_online_eval, load_checkpoint, list_step_checkpoints,
+            smi):
+    """Phase 11, data parallelism (``bts_tpu_torch/parallel``). Returns the
+    kernel launches of each data-parallel path, by path."""
+    import functools
+
+    from bts_tpu_torch.evaluation.metrics import EVAL_METRICS, NUM_LOWER_BETTER
+    from bts_tpu_torch.parallel import launch, mesh
+    from bts_tpu_torch.parallel.inference import make_sharded_forward
+    from bts_tpu_torch.training.checkpoint import BestTracker, load_checkpoint_dict
+
+    launches, info = {}, {}
+    tcfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=MAX_DEPTH, bts_size=512,
+                  learning_rate=1e-4, weight_decay=1e-2, adam_eps=1e-3, batch_size=DP_BATCH,
+                  input_height=416, input_width=544, device_augment=True)
+    gen = torch.Generator().manual_seed(11)
+    host = {"image": torch.rand(DP_BATCH, 427, 565, 3, generator=gen),
+            "depth": torch.rand(DP_BATCH, 427, 565, 1, generator=gen) * 9.5 + 0.05,
+            "focal": torch.full((DP_BATCH,), 518.8579)}
+    seeded = create_model(tcfg).state_dict()
+
+    def single_steps(cfg, n):
+        """n single-process steps on the global batch: (last loss, its wall
+        ms, the state after)."""
+        model = create_model(cfg).cuda()
+        model.load_state_dict(seeded, strict=True)
+        optimizer, _ = create_optimizer(cfg, model, 1000)
+        st, step = TrainState(model, optimizer), make_train_step(cfg)
+        dev = {k: v.cuda() for k, v in host.items()}
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(st, dev))
+            ms = (time.perf_counter() - t0) * 1e3
+        return loss, ms, {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+    # (a) Two gloo ranks on cuda:0, 2 samples each, against one process on
+    # the global batch of 4: one f32 step (TF32 off, as phase 3 set it).
+    single_loss, single_ms, want = single_steps(tcfg, 1)
+    bf16_single_ms = single_steps(tcfg.replace(compute_dtype="bfloat16"), 2)[1]
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        path = os.path.join(tmp, "a.pt")
+        torch.save({"state": seeded, "batch": host, "want": want, "plain": False,
+                    "deterministic": False}, path)
+        t0 = time.perf_counter()
+        ranks = launch.spawn(functools.partial(dp_train_rank, path), tcfg, DP_RANKS,
+                             devices=["cuda:0"] * DP_RANKS, backend="gloo")
+        spawn_s = time.perf_counter() - t0
+        for r, out in enumerate(ranks):
+            f32, bf16 = out["f32"], out["bf16"]
+            if abs(f32["loss"] - single_loss) > DP_TOL["rtol"] * abs(single_loss):
+                raise RuntimeError(f"rank {r}: f32 loss {f32['loss']!r}, one process "
+                                   f"{single_loss!r}")
+            if f32["diff"][0] > DP_TOL["atol"]:
+                raise RuntimeError(f"rank {r}: state after the f32 step {f32['diff']} from one "
+                                   f"process's, above {DP_TOL['atol']}")
+            if f32["launches"] != dp_expected_launches(steps=1) or bf16["launches"] != \
+                    dp_expected_launches(steps=2):
+                raise RuntimeError(f"rank {r}: launches {f32['launches']} (f32 step), "
+                                   f"{bf16['launches']} (2 bf16 steps)")
+            if not all(math.isfinite(v) for v in bf16["losses"]):
+                raise RuntimeError(f"rank {r}: bf16 losses {bf16['losses']}")
+            launches[f"11a gloo rank {r}: 1 f32 + 2 bf16 steps"] = {
+                k: f32["launches"][k] + bf16["launches"][k] for k in f32["launches"]}
+        if len({out["f32"]["digest"] for out in ranks}) != 1:
+            raise RuntimeError("the two ranks' states differ after the f32 step")
+        info["11a"] = {"loss": [out["f32"]["loss"] for out in ranks], "single_loss": single_loss,
+                       "state_diff": [out["f32"]["diff"] for out in ranks],
+                       "bf16_losses": [out["bf16"]["losses"] for out in ranks],
+                       "f32_step_ms": [out["f32"]["ms"] for out in ranks],
+                       "single_f32_step_ms": single_ms,
+                       "bf16_step_ms": [out["bf16"]["ms"] for out in ranks],
+                       "single_bf16_step_ms": bf16_single_ms, "spawn_s": spawn_s}
+        print(f"(a) DenseNet161-BTS 416x544, a global batch of {DP_BATCH} on {DP_RANKS} gloo "
+              f"ranks sharing cuda:0: f32 loss {info['11a']['loss']!r} against one process's "
+              f"{single_loss!r}; largest state difference {info['11a']['state_diff']!r} (atol "
+              f"{DP_TOL['atol']}); the ranks' states equal; bf16 losses "
+              f"{info['11a']['bf16_losses']!r}; launches a rank {ranks[0]['f32']['launches']} "
+              f"(f32 step), {ranks[0]['bf16']['launches']} (2 bf16 steps); {spawn_s:.1f} s")
+        print(f"(e) wall ms a step (a check, not a speed claim: gloo stages the gradients "
+              f"through the host): two ranks f32 {info['11a']['f32_step_ms']!r} (the first, "
+              f"cold), one process {single_ms!r} (cold); bf16 two ranks "
+              f"{info['11a']['bf16_step_ms']!r}, one process {bf16_single_ms!r} (each a second "
+              f"step; {smi})")
+
+        # (b) One rank over NCCL: the DDP step against the plain step.
+        path = os.path.join(tmp, "b.pt")
+        nb = DP_BATCH // DP_RANKS
+        torch.save({"state": seeded, "batch": {k: v[:nb] for k, v in host.items()},
+                    "want": None, "plain": True, "deterministic": True}, path)
+        # In this process: a rank of its own saves a child's start-up.
+        dp = mesh.init_data_parallel("cuda:0", "nccl", "file://" + os.path.join(tmp, "nccl"),
+                                     world_size=1, rank=0)
+        try:
+            out = dp_train_rank(path, tcfg.replace(batch_size=nb), dp)
+        finally:
+            torch.distributed.destroy_process_group()
+            torch.backends.cudnn.deterministic = False
+        diff = out["plain"]["diff"]
+        if diff[0] > DP_NCCL_ATOL or abs(out["f32"]["loss"] - out["plain"]["loss"]) > \
+                1e-5 * abs(out["plain"]["loss"]):
+            raise RuntimeError(f"NCCL rank: loss {out['f32']['loss']!r} against the plain "
+                               f"step's {out['plain']['loss']!r}, state difference {diff}")
+        if out["f32"]["launches"] != dp_expected_launches(steps=1):
+            raise RuntimeError(f"NCCL rank: launches {out['f32']['launches']}")
+        launches["11b NCCL rank: 1 f32 step"] = out["f32"]["launches"]
+        info["11b"] = {"loss": out["f32"]["loss"], "plain_loss": out["plain"]["loss"],
+                       "state_diff": diff}
+        print(f"(b) one NCCL rank, DDP step against the plain step (batch {nb}, f32, "
+              f"deterministic cuDNN): loss {out['f32']['loss']!r} against "
+              f"{out['plain']['loss']!r}, largest state difference {diff!r} (atol "
+              f"{DP_NCCL_ATOL}); launches {out['f32']['launches']}")
+
+        # (c) cli.train through the launcher: two gloo ranks on cuda:0, the
+        # recipe for DP_STEPS steps, an online eval every DP_EVAL_FREQ steps
+        # over EVAL_FRAMES frames (batch 1: the ranks' forwards are one
+        # process's).
+        data = os.path.join(tmp, "data")
+        manifest = write_nyu_frames(data, DP_BATCH * DP_STEPS)
+        eval_manifest = write_manifest_head(manifest, "eval.txt", EVAL_FRAMES)
+        log_dir = os.path.join(tmp, "logs")
+        args_path, overrides = train_args(manifest, eval_manifest, log_dir)
+        overrides += ["--eval_freq", str(DP_EVAL_FREQ), "--eval_batch_size", "1",
+                      "--num_devices", str(DP_RANKS), "--dist_backend", "gloo",
+                      "--device", ",".join(["cuda:0"] * DP_RANKS)]
+        text = []
+        t0 = time.perf_counter()
+        with captured_fd_stdout(text):
+            rc = cli_train.main(["@" + args_path, *overrides])
+        cli_s = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"cli.train on {DP_RANKS} ranks returned {rc}")
+        steps = [(int(gs), float(loss)) for gs, _, loss in STEP_LINE.findall(text[0])]
+        if [gs for gs, _ in steps] != list(range(1, DP_STEPS + 1)) or not all(
+                math.isfinite(loss) for _, loss in steps):
+            raise RuntimeError(f"cli.train on {DP_RANKS} ranks logged {steps}")
+        tables = text[0].count(f"Computing errors for {EVAL_FRAMES} eval samples")
+        if tables != DP_STEPS // DP_EVAL_FREQ:
+            raise RuntimeError(f"{tables} eval tables over {EVAL_FRAMES} samples, expected "
+                               f"{DP_STEPS // DP_EVAL_FREQ}")
+        if sorted(set(os.listdir(log_dir)) - {"eval"}) != ["bts_nyu_v2_tpu"]:  # eval: TensorBoard's
+            raise RuntimeError(f"run dirs {os.listdir(log_dir)}")
+        run_dir = os.path.join(log_dir, "bts_nyu_v2_tpu")
+        best = best_checkpoints(run_dir)
+        if sorted(best) != sorted(EVAL_METRICS) or list_step_checkpoints(run_dir):
+            raise RuntimeError(f"cli.train on {DP_RANKS} ranks wrote {sorted(os.listdir(run_dir))}")
+        by_step = {}  # step -> (a best file of it, [(metric index, logged value)])
+        for metric, files in best.items():
+            step, ckpt = files[-1]
+            raw = load_checkpoint_dict(ckpt)
+            if any(k.startswith("module.") for k in raw["model"]):
+                raise RuntimeError(f"{ckpt} holds DDP's module. names")
+            tracker, i = BestTracker.from_dict(raw), EVAL_METRICS.index(metric)
+            logged = (tracker.lower[i] if i < NUM_LOWER_BETTER
+                      else tracker.higher[i - NUM_LOWER_BETTER])
+            by_step.setdefault(step, (ckpt, []))[1].append((i, float(logged)))
+        eval_cfg = parse_args(["@" + args_path, *overrides])
+        worst = 0.0
+        for step, (ckpt, logged) in sorted(by_step.items()):
+            fresh = create_model(eval_cfg).cuda()
+            fresh.load_state_dict(load_checkpoint(ckpt), strict=True)
+            got = run_online_eval(fresh, eval_cfg, verbose=False)
+            for i, value in logged:
+                np.testing.assert_allclose(got[i], value, rtol=1e-5, atol=0,
+                                           err_msg=f"{EVAL_METRICS[i]} at step {step}")
+                worst = max(worst, float(abs(got[i] - value) / abs(value)))
+            del fresh
+        info["11c"] = {"losses": [loss for _, loss in steps], "seconds": cli_s,
+                       "best_steps": sorted(by_step), "max_rel_diff": worst}
+        print(f"(c) cli.train --num_devices {DP_RANKS} (gloo ranks on cuda:0): losses "
+              f"{info['11c']['losses']!r}, {tables} evals of {EVAL_FRAMES} frames (4 + 4), one "
+              f"run dir by rank 0 with a best checkpoint per metric (plain names); a fresh "
+              f"single-process model on each gives the logged measures (max rel diff "
+              f"{worst!r}); {cli_s:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) The replicated forward on [cuda:0, cuda:0], batch 8 in two parts.
+    scfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=MAX_DEPTH, bts_size=512)
+    model = create_model(scfg).cuda().eval()
+    x = torch.randn(DP_SERVE_BATCH, 3, 480, 640, generator=gen).cuda()
+    focal = torch.full((DP_SERVE_BATCH,), 518.8579).cuda()
+    with torch.inference_mode():
+        single = model(x, focal)[4][:, 0].float()
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 0.15)):
+        fwd = make_sharded_forward(model, ["cuda:0"] * DP_RANKS, scfg.replace(compute_dtype=dtype))
+        reset_kernel_counts()
+        parts = fwd(x, focal)
+        torch.cuda.synchronize()
+        launched = kernel_counts()
+        want_launches = dp_expected_launches(forwards=1, replicas=DP_RANKS)
+        diff = float((torch.cat(parts) - single).abs().max())
+        if [tuple(p.shape) for p in parts] != [(DP_SERVE_BATCH // DP_RANKS, 480, 640)] * \
+                DP_RANKS or launched != want_launches or not diff < tol:
+            raise RuntimeError(f"sharded forward {dtype}: shapes {[p.shape for p in parts]}, "
+                               f"launches {launched} (expected {want_launches}), max abs diff "
+                               f"{diff} m against the single f32 forward (tolerance {tol})")
+        launches[f"11d sharded forward {dtype}, {DP_RANKS} replicas"] = launched
+        info[f"11d_{dtype}_max_abs_diff"] = diff
+        print(f"(d) make_sharded_forward on {DP_RANKS} replicas on cuda:0, {dtype}, batch "
+              f"{DP_SERVE_BATCH} at 480x640: max abs diff {diff!r} m from the single f32 "
+              f"forward (tolerance {tol}); launches {launched}")
+        del fwd, parts
+    del model
+    torch.cuda.empty_cache()
+    print(json.dumps({"data_parallel": info, "dp_launches": launches, "device": smi}))
+    return launches
 
 
 def main():
@@ -1787,6 +2166,12 @@ def main():
           f"{lpg_cpu_rec['cuda_refused']!r}")
     print(json.dumps({"tf_forward_bf16_b8_img_per_s": tf_rates, "tf_launches": tf_launches,
                       "lpg_cpu": lpg_cpu_rec, "device": smi}))
+
+    phase("11 data parallelism: two gloo ranks on one card, one NCCL rank, cli.train, sharded "
+          "forward")
+    dp_launches = phase11(torch, Config, parse_args, create_model, create_optimizer, TrainState,
+                          make_train_step, cli_train, run_online_eval, load_checkpoint,
+                          list_step_checkpoints, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -1821,7 +2206,9 @@ def main():
                                                         "cudnn_chain_ms", "bound_ms", *eo)},
             "densenet121": {f"b{b}": dense121[impl, name, b] for b in (8, 1)},
             **({"tf_launches": {k: v["taps"] for k, v in tf_launches.items()
-                                if v["taps"] and k.startswith(tf_dtype[name])}}
+                                if v["taps"] and k.startswith(tf_dtype[name])},
+                "dp_launches": {k: v["taps"] for k, v in dp_launches.items()
+                                if v["taps"] and k.endswith(f"{name}, {DP_RANKS} replicas")}}
                if impl == "taps" else {}),
         }
 
@@ -1833,7 +2220,8 @@ def main():
          "float32": lpg_record("float32"), "bare_float32": lpg_record("bare"),
          "train_sites": dict(zip(("ms", "plain_ms", "bound_ms"), lpg_fwd_train)),
          "zoo_launches": {k: v["lpg"] for k, v in zoo_launches.items()},
-         "tf_launches": {k: v["lpg"] for k, v in tf_launches.items()}},
+         "tf_launches": {k: v["lpg"] for k, v in tf_launches.items()},
+         "dp_launches": {k: v["lpg"] for k, v in dp_launches.items()}},
         {"name": "lpg_backward", "route": "cuda", "source": LPG_SOURCE,
          "replaces": LPG_BWD_REPLACES, "grad_dtype": "bfloat16",
          "launches": train_path["lpg_backward"], "launches_per_step": 3,
@@ -1842,6 +2230,8 @@ def main():
          "zoo_launches": {k: v["lpg_backward"] for k, v in zoo_launches.items()
                           if v["lpg_backward"]},
          "tf_launches": {k: v["lpg_backward"] for k, v in tf_launches.items()
+                         if v["lpg_backward"]},
+         "dp_launches": {k: v["lpg_backward"] for k, v in dp_launches.items()
                          if v["lpg_backward"]}},
         dense_record("taps", "bfloat16", serving, forwards),
         dense_record("taps", "float32", f32_path["taps"], 1),

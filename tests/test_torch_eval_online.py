@@ -11,6 +11,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from bts_tpu.config import Config as JConfig
@@ -23,7 +24,7 @@ from bts_tpu_torch.config import Config
 from bts_tpu_torch.data.loader import EvalLoader
 from bts_tpu_torch.evaluation import offline, schedule
 from bts_tpu_torch.evaluation.metrics import EVAL_METRICS
-from bts_tpu_torch.evaluation.online import make_eval_forward, run_online_eval
+from bts_tpu_torch.evaluation.online import allgather_vector, make_eval_forward, run_online_eval
 from bts_tpu_torch.models import bts
 from bts_tpu_torch.models.convert import load_checkpoint, state_dict_from_flax
 from bts_tpu_torch.training import checkpoint, state
@@ -182,7 +183,7 @@ def test_online_eval_all_missing_gt_batch_skips_the_device(tmp_path, monkeypatch
     assert np.isfinite(got).all() and len(calls) == 1
 
 
-def test_online_eval_simulated_3process_equals_single(tiny_encoder, nyu_eval):
+def test_online_eval_simulated_3process_equals_single(tiny_encoder, nyu_eval, tmp_path):
     """test_multiprocess_sim.py: three ranks on [r::3] shards, their metric
     vectors gathered by an injected allgather, give the one-process measures
     (rtol 1e-6: the shards batch other images together than one process
@@ -207,8 +208,17 @@ def test_online_eval_simulated_3process_equals_single(tiny_encoder, nyu_eval):
                                verbose=False, process_info=(3, 0),
                                allgather_fn=lambda vec: np.stack([vec, *local[1:]]))
     np.testing.assert_allclose(combined, single, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        run_online_eval(model, cfg, forward=forward, process_info=(2, 0))
+    # Without process_info and allgather_fn, the process group's: a gloo group
+    # of one rank here (tests/test_torch_parallel.py runs two).
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        np.testing.assert_array_equal(allgather_vector(np.arange(10.0)),
+                                      np.arange(10.0, dtype=np.float32)[None])
+        np.testing.assert_array_equal(run_online_eval(model, cfg, forward=forward,
+                                                      verbose=False), single)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_eval_forward_keeps_the_modes_and_serves_eval_mode(tiny_encoder):

@@ -85,6 +85,12 @@ SLICE_MODULES = [
     "bts_tpu_torch.tools.profile_forward",
     "bts_tpu_torch.tools.profile_train",
     "bts_tpu_torch.tools.reproduce_reference",
+    "bts_tpu_torch.tools.dryrun_multichip",
+    "bts_tpu_torch.parallel",
+    "bts_tpu_torch.parallel.mesh",
+    "bts_tpu_torch.parallel.sync_bn",
+    "bts_tpu_torch.parallel.launch",
+    "bts_tpu_torch.parallel.inference",
 ]
 
 

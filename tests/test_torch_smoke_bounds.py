@@ -187,3 +187,27 @@ def test_eval_throughput_times_a_split_the_size_of_nyus(tmp_path):
     assert sorted(rates) == ["device_eval_off", "device_eval_on", "loader_only"]
     assert (info["frames"], info["distinct_frames"], len(info["runs"])) == (n, 3, 4)
     assert info["loader_share_of_eval_wall"] == rates["device_eval_on"] / rates["loader_only"]
+
+
+def test_phase11_rank_shares_make_the_global_batch():
+    """Phase 11's ranks take contiguous shares of its global batch in rank
+    order (parallel.mesh.local_slice), which together are the batch the
+    single-process step takes."""
+    from bts_tpu_torch.parallel.mesh import local_slice
+
+    batch = {"focal": np.arange(cs.DP_BATCH)}
+    shares = [local_slice(batch, cs.DP_RANKS, r)["focal"] for r in range(cs.DP_RANKS)]
+    assert [s.tolist() for s in shares] == [[0, 1], [2, 3]]
+    with pytest.raises(ValueError, match="a batch of 4 does not split over 3 ranks"):
+        local_slice(batch, 3, 0)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(steps=1), {"taps": 0, "eo": 0, "lpg": 3, "lpg_backward": 3}),
+    (dict(steps=2), {"taps": 0, "eo": 0, "lpg": 6, "lpg_backward": 6}),
+    (dict(forwards=1, replicas=2), {"taps": 156, "eo": 0, "lpg": 6, "lpg_backward": 0}),
+])
+def test_phase11_launch_accounting(kw, want):
+    """A train step launches 3 LPG forward and 3 backward and no fused dense
+    kernel; each replica's inference forward 78 taps (DenseNet161) and 3 LPG."""
+    assert cs.dp_expected_launches(**kw) == want

@@ -14,10 +14,12 @@ from PIL import Image
 from bts_tpu.training import checkpoint as jckpt
 from bts_tpu_torch.config import Config
 from bts_tpu_torch.models import bts
+from bts_tpu_torch.parallel import launch
 from bts_tpu_torch.training import checkpoint, optim, state
 from bts_tpu_torch.training.loop import train
 from bts_tpu_torch.training.lr import polynomial_decay_host
 
+import torch_parallel_ranks as ranks
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
 from torch_train_helpers import H, W
 
@@ -173,10 +175,23 @@ def test_train_loop_aborts_on_nan(tiny_encoder, tmp_path, monkeypatch, capsys):
     assert "NaN in loss occurred. Aborting training." in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,item", [({"num_devices": 4}, "item 10")])
-def test_train_refuses_what_is_not_ported(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        train(Config(**flag), device=torch.device("cpu"))
+def test_train_loop_on_two_gloo_ranks_stops_together_on_one_ranks_preemption(tmp_path):
+    """``num_devices 2`` on the CPU (parallel.launch.spawn, as cli.train starts
+    it): 4 frames, a global batch of 2, each rank loading its shard. Rank 1
+    alone sees a termination request after step 2; the flag is agreed at
+    that step boundary, so both ranks stop at step 2 and rank 0 alone writes
+    the run dir and its checkpoint ``model-2``; without the agreement rank 0
+    would wait for rank 1 in step 3's collectives. A loop not started as the
+    ranks ``num_devices`` names raises."""
+    cfg = _loop_cfg(ranks.TINY, tmp_path, num_devices=2, save_freq=1000)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setenv("OMP_NUM_THREADS", "1")  # the ranks share the workers' cores
+        assert launch.spawn(ranks.preempted_train, cfg, 2, devices=["cpu", "cpu"]) == [2, 2]
+    run_dir = tmp_path / "logs" / "tiny_run"
+    assert sorted(checkpoint.list_step_checkpoints(str(run_dir))) == [2]
+    assert sorted(os.listdir(tmp_path / "logs")) == ["tiny_run"]
+    with pytest.raises(ValueError, match="num_devices 4, but this process is one of 1 ranks"):
+        train(Config(num_devices=4), device=torch.device("cpu"))
 
 
 def _cli_train(args, *extra):
