@@ -11,7 +11,8 @@ card (``0``, the default, means every card of the host: one process on a
 one-card host); ``--device cpu --num_devices N`` starts N gloo ranks on the
 CPU; ``--device cuda:0,cuda:0 --dist_backend gloo`` puts two ranks on one
 card. Under torchrun, SLURM or Open MPI (``mesh.maybe_init_distributed``)
-this process joins the launcher's group as one rank instead. The step is
+this process joins the launcher's group as one rank instead, on its local
+rank's card (``--device cpu``: gloo on the CPU; no card raises). The step is
 the global batch's whatever the ranks (``--batch_size`` is global).
 """
 
@@ -46,8 +47,8 @@ def main(argv=None) -> int:
     from bts_tpu_torch.parallel import launch, mesh
     from bts_tpu_torch.training.loop import train
 
-    if mesh.maybe_init_distributed():
-        dp = mesh.init_data_parallel(mesh.env_device())
+    if mesh.maybe_init_distributed(device=device):
+        dp = mesh.init_data_parallel(mesh.env_device(device))
         return 0 if run_rank(cfg, dp) >= 0 else -1
     devices = launch.rank_devices(device, cfg.num_devices)
     if len(devices) > 1:

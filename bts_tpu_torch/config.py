@@ -97,8 +97,9 @@ class Config:
 
     # Additions of bts_tpu (no reference equivalent); kept so its args
     # files parse. The port reads all but the TPU layout options
-    # mesh_axis_name, fast_tail, remat, remat_policy, remat_scope and
-    # async_checkpoint.
+    # mesh_axis_name, fast_tail, remat, remat_policy and remat_scope.
+    # async_checkpoint writes checkpoints on a background thread from
+    # pinned host copies (training/checkpoint.py, CheckpointWriter).
     num_devices: int = 0
     mesh_axis_name: str = "data"
     compute_dtype: str = "float32"

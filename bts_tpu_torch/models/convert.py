@@ -3,10 +3,11 @@
 The port's module names are the reference PyTorch names, so a reference
 checkpoint is already a state dict of this model (``load_checkpoint``).
 ``state_dict_from_flax`` maps ``bts_tpu``'s param/batch_stats trees onto
-those names. The key mapping is a copy of ``bts_tpu/models/convert.py``'s
-(``_torch_key`` with its ResNet renames, and the MobileNetV2 table of
-``_full_mobilenet_key``), because importing that module loads flax through
-``bts_tpu/models/__init__.py``.
+those names (``tensors_from_flax`` maps any tree of that shape, optax's
+moments too, keeping each leaf's dtype). The key mapping is a copy of
+``bts_tpu/models/convert.py``'s (``_torch_key`` with its ResNet renames,
+and the MobileNetV2 table of ``_full_mobilenet_key``), because importing
+that module loads flax through ``bts_tpu/models/__init__.py``.
 
 Layout: flax kernel (kh, kw, I/groups, O) -> torch weight (O, I/groups, kh,
 kw), grouped and depthwise kernels too; BN scale/bias/mean/var ->
@@ -147,21 +148,45 @@ def torch_key(path: Tuple[str, ...], leaf_shape) -> str:
     raise KeyError(f"unknown scope for {path}")
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor of its own dtype; ml_dtypes' bfloat16, which
+    ``torch.from_numpy`` does not take, by its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def tensors_from_flax(tree: Mapping, dtype=None) -> Dict[str, torch.Tensor]:
+    """Each leaf of a tree shaped like bts_tpu's params (or batch_stats, or
+    an optax moment of the params) under its torch name, kernels in torch's
+    layout, cast to ``dtype`` or, by default, in the leaf's own dtype (a
+    bf16 moment stays bf16). A leaf that is None or an empty tuple is a
+    masked-out moment (``optax.MaskedNode``, which orbax restores as None)
+    and is skipped."""
+    out: Dict[str, torch.Tensor] = {}
+    flat = _flatten(tree)
+    for path, leaf in flat.items():
+        if leaf is None or (isinstance(leaf, tuple) and not leaf):
+            continue
+        arr = np.asarray(leaf, dtype=dtype)
+        # A conv's bias is named by its kernel's shape (reduc inter_{in}_{out}).
+        kernel = flat.get(path[:-1] + ("kernel",), leaf)
+        key = torch_key(path, np.shape(kernel))
+        if path[-1] == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)
+        out[key] = _tensor(arr)
+    return out
+
+
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """bts_tpu BTSModel (params, batch_stats) trees of numpy arrays -> the
-    port's state dict, ``num_batches_tracked`` = 0 for every BN."""
+    port's state dict in f32, ``num_batches_tracked`` = 0 for every BN."""
     state: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats):
-        flat = _flatten(tree)
-        for path, leaf in flat.items():
-            arr = np.asarray(leaf, dtype=np.float32)
-            # A conv's bias is named by its kernel's shape (reduc inter_{in}_{out}).
-            kernel = flat.get(path[:-1] + ("kernel",), leaf)
-            key = torch_key(path, np.shape(kernel))
-            if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)
-            state[key] = torch.tensor(arr)
-            if path[-1] == "mean":
+        for key, value in tensors_from_flax(tree, np.float32).items():
+            state[key] = value
+            if key.endswith("running_mean"):
                 tracked = key[: -len("running_mean")] + "num_batches_tracked"
                 state[tracked] = torch.zeros((), dtype=torch.long)
     return state

@@ -207,22 +207,27 @@ def env_ranks(environ) -> Tuple[int, int, int]:
     return 1, 0, 0
 
 
-def env_device(environ=None) -> torch.device:
-    """The device of this launcher rank: ``cuda:<local rank>`` on a card
-    host, else the CPU."""
+def env_device(device: str = "", environ=None) -> torch.device:
+    """The device of this launcher rank: the CPU under ``--device cpu``,
+    else the card of its local rank, ``cuda:<local rank>``. Without a card
+    it raises rather than train on the CPU unasked."""
     environ = os.environ if environ is None else environ
-    if torch.cuda.is_available():
-        return torch.device(f"cuda:{env_ranks(environ)[2]}")
-    return torch.device("cpu")
+    if device.startswith("cpu"):
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for this launcher rank; pass --device cpu to run on "
+                           "the CPU")
+    return torch.device(f"cuda:{env_ranks(environ)[2]}")
 
 
-def maybe_init_distributed(environ=None, initialize_fn=None) -> bool:
+def maybe_init_distributed(environ=None, initialize_fn=None, device: str = "") -> bool:
     """Join the process group of a launcher's ranks (torchrun, SLURM, Open
     MPI). The decision is made from the environment alone
     (``_multihost_env_reason``) before any backend call. No-op when a group
     is already up or no launcher started several ranks. Returns True if
-    ``initialize_fn`` ran. It defaults to ``init_process_group`` on
-    ``env_device``'s backend with ``env://`` rendezvous (MASTER_ADDR and
+    ``initialize_fn`` ran. It defaults to ``init_process_group`` on the
+    backend of ``env_device(device)`` (``device`` is ``--device``) with
+    ``env://`` rendezvous (MASTER_ADDR and
     MASTER_PORT from the environment) and the launcher's world size and
     rank; ``init_data_parallel`` then describes the rank. A failure raises.
     ``environ`` and ``initialize_fn`` are injectable for tests."""
@@ -235,7 +240,8 @@ def maybe_init_distributed(environ=None, initialize_fn=None) -> bool:
         world, rank, _ = env_ranks(environ)
 
         def initialize_fn():
-            dist.init_process_group(default_backend(env_device(environ)), init_method="env://",
+            dist.init_process_group(default_backend(env_device(device, environ)),
+                                    init_method="env://",
                                     world_size=world, rank=rank)
 
     initialize_fn()

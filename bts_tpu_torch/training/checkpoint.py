@@ -6,22 +6,30 @@ trainer's dict (pytorch/bts_main.py:500-503,532-539): ``global_step``,
 ``best_eval_measures_lower_better`` and ``best_eval_steps``. Names follow the
 reference: ``model-{step}`` and ``model-{step}-best_{metric}_{value:.5f}``.
 
-Restore (``restore_training_start``) takes the port's own files (a full
-resume: weights, optimizer state, step, best tracker), the reference's
-``.pth`` files, whose ``torch.optim.AdamW`` state has no counterpart here,
-and TF checkpoints (the TF graph's weights and the stored global_step): for
-the last two the optimizer starts fresh with its LR schedule advanced to the
-restored step (``advance_schedule_count``). ``--retrain`` restarts the step
-and the LR. An orbax directory is refused by ``config.parse_args``; export
-it with ``scripts/export_orbax_to_pth.py``. ``average_checkpoints`` and
-``save_params_only`` make an inference checkpoint of several
-(``cli/avg_checkpoints.py``).
+Saves run on the loop's thread or, with ``async_save``
+(``--async_checkpoint``), on a background writer (``CheckpointWriter``)
+with ``bts_tpu``'s semantics: at most one save in flight, drained before
+every removal (``remove_old_best``, ``prune_step_checkpoints``), before
+``save_params_only`` and at the loop's end (``wait_for_async_saves``).
+
+Restore (``restore_training_start``) takes the port's own files and the
+exports of ``bts_tpu`` runs (``scripts/export_orbax_to_pth.py``, optax's
+moments and counts included): a full resume of weights, optimizer state,
+step and best tracker. It also takes the reference's ``.pth`` files, whose
+``torch.optim.AdamW`` state has no counterpart here, and TF checkpoints
+(the TF graph's weights and the stored global_step): for those two the
+optimizer starts fresh with its LR schedule advanced to the restored step
+(``advance_schedule_count``), as in ``bts_tpu``. ``--retrain`` restarts the
+step and the LR. An orbax directory is refused by ``config.parse_args``.
+``average_checkpoints`` and ``save_params_only`` make an inference
+checkpoint of several (``cli/avg_checkpoints.py``).
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -80,17 +88,123 @@ class BestTracker:
         return t
 
 
-def save_checkpoint(path: str, state, best: Optional[BestTracker] = None) -> None:
-    """Write the reference trainer's dict to ``path`` (a file), atomically."""
-    payload = {
+class CheckpointWriter:
+    """Writes checkpoint dicts with ``torch.save``, on this thread or on a
+    background one, at most one save in flight (``bts_tpu``'s orbax
+    ``AsyncCheckpointer``, ``bts_tpu/training/checkpoint.py:90-143``).
+
+    A save first waits for the one in flight. Then it copies every tensor of
+    the payload into host buffers of its own, which it keeps from save to
+    save (pinned for a card's tensors): the copies are enqueued on the
+    current stream and an event is recorded after them. ``AdamW.step`` and
+    the BN statistics change the live tensors in place, but the next step's
+    kernels run on the same stream after the copies, so the buffers hold the
+    state as it was at the save. The writer then waits on the event and
+    writes the buffers to a temporary file that replaces ``path``. On CPU
+    tensors the copies are synchronous. An exception of a background write
+    is raised by the next ``wait`` (or save)."""
+
+    def __init__(self):
+        self._buffers: Dict[str, torch.Tensor] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self) -> None:
+        """Block until the save in flight, if any, has replaced its file;
+        raise its exception if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise error
+
+    def save(self, path: str, payload: Dict[str, Any], async_save: bool = False) -> None:
+        """Write ``payload`` to ``path``; with ``async_save`` on a background
+        thread, returning once the copies to the host are enqueued."""
+        self.wait()
+        buffers: Dict[str, torch.Tensor] = {}
+        cards = set()
+        host = self._to_host(payload, "", buffers, cards)
+        self._buffers = buffers  # a buffer no tensor of this payload uses is freed
+        events = []  # after the copies, on each card's current stream
+        for device in cards:
+            events.append(torch.cuda.Event())
+            events[-1].record(torch.cuda.current_stream(device))
+        if not async_save:
+            _write(path, host, events)
+            return
+        self._thread = threading.Thread(target=self._run, args=(path, host, events),
+                                        name="checkpoint-writer")
+        self._thread.start()
+
+    def _run(self, path: str, host: Dict[str, Any], events) -> None:
+        try:
+            _write(path, host, events)
+        except Exception as e:  # raised on the caller's thread by wait()
+            self._error = e
+
+    def _to_host(self, obj, key: str, buffers: Dict[str, torch.Tensor], cards: set):
+        """``obj`` with each tensor replaced by its host buffer (``buffers``,
+        by ``key``, the tensor's place in the payload), its copy enqueued;
+        ``cards`` collects the devices copied from."""
+        if isinstance(obj, torch.Tensor):
+            t = obj.detach()
+            buf = self._buffers.get(key)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            buf.copy_(t, non_blocking=t.is_cuda)
+            if t.is_cuda:
+                cards.add(t.device)
+            buffers[key] = buf
+            return buf
+        if isinstance(obj, dict):
+            return {k: self._to_host(v, f"{key}/{k}", buffers, cards) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._to_host(v, f"{key}/{i}", buffers, cards)
+                             for i, v in enumerate(obj))
+        return obj
+
+
+def _write(path: str, payload: Dict[str, Any], events=()) -> None:
+    """``torch.save`` to a temporary file that then replaces ``path``, once
+    ``events`` (after the copies into ``payload``'s buffers) have completed."""
+    for event in events:
+        event.synchronize()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+_WRITER = CheckpointWriter()
+
+
+def wait_for_async_saves() -> None:
+    """Block until the checkpoint save in flight has committed; re-raise its
+    exception if it failed."""
+    _WRITER.wait()
+
+
+def checkpoint_payload(state, best: Optional[BestTracker] = None) -> Dict[str, Any]:
+    """The reference trainer's dict of ``state``; its tensors are the live
+    ones (``CheckpointWriter.save`` copies them)."""
+    return {
         "global_step": int(state.step),
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         **(best or BestTracker()).to_dict(),
     }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, state, best: Optional[BestTracker] = None,
+                    async_save: bool = False) -> None:
+    """Write the reference trainer's dict to ``path`` (a file), atomically.
+
+    ``async_save`` returns once the state's copies to the host are enqueued;
+    a background thread writes the file (``CheckpointWriter``). At most one
+    save is in flight: any save first waits for the previous one. Call
+    ``wait_for_async_saves()`` before reading the file back or exiting."""
+    _WRITER.save(path, checkpoint_payload(state, best), async_save)
 
 
 def _numpy_globals():
@@ -159,6 +273,7 @@ def average_checkpoints(paths) -> Dict[str, torch.Tensor]:
 def save_params_only(path: str, state: Dict[str, torch.Tensor]) -> None:
     """An inference checkpoint: the reference's dict with only its ``model``
     key, written atomically; ``cli.test`` and ``--checkpoint_path`` read it."""
+    wait_for_async_saves()
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({"model": state}, tmp)
     os.replace(tmp, path)
@@ -168,8 +283,11 @@ def restore_training_start(cfg, state, best: BestTracker):
     """Apply ``--checkpoint_path`` (and ``--retrain``) to a fresh train state.
     Returns (state, best).
 
-    * a file saved by this port: full resume (weights, optimizer state,
-      step, best tracker; the reference's resume, pytorch/bts_main.py:376-397);
+    * a file saved by this port, or a bts_tpu run exported by
+      ``scripts/export_orbax_to_pth.py``: full resume (weights, optimizer
+      state with its moments and counts, step, best tracker; the
+      reference's resume, pytorch/bts_main.py:376-397, and bts_tpu's,
+      bts_tpu/training/loop.py:144-181);
     * a reference torch file (trainer save, zoo release or bare state dict):
       the weights, plus global_step and the best tracker where the dict
       carries them; the optimizer's moments start fresh and its LR schedule
@@ -216,7 +334,9 @@ def best_checkpoint_name(step: int, metric: str, value: float) -> str:
 
 
 def remove_old_best(log_dir: str, step: int, metric: str, value: float) -> None:
-    """Delete a superseded best checkpoint (pytorch/bts_main.py:524-528)."""
+    """Delete a superseded best checkpoint (pytorch/bts_main.py:524-528),
+    once the save in flight has committed."""
+    wait_for_async_saves()
     path = os.path.join(log_dir, best_checkpoint_name(step, metric, value))
     if os.path.exists(path):
         os.remove(path)
@@ -237,7 +357,9 @@ def list_step_checkpoints(log_dir: str) -> Dict[int, str]:
 def prune_step_checkpoints(log_dir: str, max_to_keep: int) -> None:
     """Keep only the newest ``max_to_keep`` 'model-{step}' checkpoints
     (tf.train.Saver(max_to_keep), tensorflow/bts_main.py:214). Best-metric
-    checkpoints are never pruned."""
+    checkpoints are never pruned. Waits for the save in flight first, so
+    that it is counted."""
+    wait_for_async_saves()
     if max_to_keep <= 0:
         return
     ckpts = list_step_checkpoints(log_dir)

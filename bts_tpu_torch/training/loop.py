@@ -13,7 +13,9 @@ Reference behaviours (pytorch/bts_main.py:322-604):
   * TensorBoard scalars and image panels (:482-496), with tensorboardX when
     it imports;
   * periodic ``model-{step}`` checkpoints (:498-503), pruned to
-    ``max_to_keep``;
+    ``max_to_keep``, written in the background under ``--async_checkpoint``
+    (``bts_tpu/training/loop.py:513,546``; drained before each removal and
+    at the end);
   * under ``--do_online_eval``, an eval every ``eval_freq`` steps (:505-545)
     in place of the periodic saves: the nine measures to the console and
     TensorBoard, and a ``model-{step}-best_{metric}_{value:.5f}`` checkpoint
@@ -262,16 +264,31 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             ckpt_lib.remove_old_best(run_dir, old_step, metric, old_value)
             name = ckpt_lib.best_checkpoint_name(step, metric, float(measures[mi]))
             print(f"New best for {metric}. Saving model: {name}")
-            ckpt_lib.save_checkpoint(os.path.join(run_dir, name), state, best)
+            ckpt_lib.save_checkpoint(os.path.join(run_dir, name), state, best,
+                                     async_save=cfg.async_checkpoint)
 
     # Checkpoint and exit cleanly at the next step boundary on SIGTERM.
     preempt_guard = PreemptionGuard(signals=(signal.SIGTERM,) if cfg.preempt_checkpoint else ())
     preempt_guard.__enter__()
 
+    prune_due = False  # a model-N was saved since the last prune
+
+    def prune() -> None:
+        """Keep the newest max_to_keep model-N files, the save in flight
+        counted (``prune_step_checkpoints`` waits for it)."""
+        nonlocal prune_due
+        if prune_due:
+            ckpt_lib.prune_step_checkpoints(run_dir, cfg.max_to_keep)
+            prune_due = False
+
     def finish(rv: int) -> int:
         if profiler is not None:
             profiler.stop()
         preempt_guard.__exit__(None, None, None)
+        # Commit the save in flight (raising its error) before returning:
+        # callers read the checkpoints back (bts_tpu/training/loop.py:423-426).
+        ckpt_lib.wait_for_async_saves()
+        prune()
         logger.close()
         return rv
 
@@ -323,9 +340,14 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 if (will_save or will_eval) and not drain():
                     return finish(-1)
                 if will_save:
+                    # An async save is pruned at the next save or at the end,
+                    # once it has committed, so that it does not hold the loop.
+                    prune()
                     ckpt_lib.save_checkpoint(os.path.join(run_dir, f"model-{global_step}"),
-                                             state, best)
-                    ckpt_lib.prune_step_checkpoints(run_dir, cfg.max_to_keep)
+                                             state, best, async_save=cfg.async_checkpoint)
+                    prune_due = True
+                    if not cfg.async_checkpoint:
+                        prune()
                 if will_eval:
                     evaluate(global_step)
 
@@ -336,6 +358,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                     if run_dir:
                         print("Termination signal received; saving checkpoint "
                               f"model-{global_step} and exiting cleanly.")
+                        # A synchronous save: it waits for the save in flight.
                         ckpt_lib.save_checkpoint(
                             os.path.join(run_dir, f"model-{global_step}"), state, best)
                     return finish(global_step)

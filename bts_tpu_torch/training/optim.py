@@ -34,8 +34,9 @@ Freezing follows the reference's ``set_misc`` substring rules
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -194,18 +195,33 @@ class AdamW:
         }
 
     def load_state_dict(self, sd: dict) -> None:
+        """Load a ``state_dict()`` (this port's, or ``adamw_state_from_optax``'s
+        of a bts_tpu run). The state is keyed by name, so each group's
+        parameters are compared as a set; a parameter of another group, or a
+        moment of another shape or of another dtype than this run keeps
+        (``mu_dtype``, ``--adam_bf16_moments``), raises."""
         if not is_port_optimizer_state(sd):
             raise ValueError("not a bts_tpu_torch AdamW state dict")
         for gname, g in self.groups.items():
             saved = sd["groups"][gname]
-            if saved["params"] != [n for n, _ in g["params"]]:
-                raise ValueError(f"optimizer group {gname!r}: the saved parameters differ")
+            names = {n for n, _ in g["params"]}
+            if set(saved["params"]) != names:
+                differ = sorted(set(saved["params"]) ^ names)
+                raise ValueError(f"optimizer group {gname!r}: the saved parameters differ "
+                                 f"({len(differ)} names, e.g. {differ[:3]})")
             g["count"], g["schedule_count"] = int(saved["count"]), int(saved["schedule_count"])
         params = dict(self.named_params())
-        self.state = {
-            n: {k: v.to(device=params[n].device) for k, v in st.items()}
-            for n, st in sd["state"].items()
-        }
+        state = {}
+        for n, st in sd["state"].items():
+            if n not in params:
+                raise ValueError(f"optimizer state for {n!r}, which no group trains")
+            p = params[n]
+            for k, want in (("mu", self.mu_dtype or p.dtype), ("nu", p.dtype)):
+                if st[k].dtype != want or st[k].shape != p.shape:
+                    raise ValueError(f"{n}: saved {k} is {st[k].dtype} {tuple(st[k].shape)}, "
+                                     f"this run keeps {want} {tuple(p.shape)}")
+            state[n] = {k: v.to(device=p.device) for k, v in st.items()}
+        self.state = state
 
 
 def is_port_optimizer_state(sd) -> bool:
@@ -226,6 +242,49 @@ def advance_schedule_count(optimizer: AdamW, step: int) -> AdamW:
     for group in optimizer.groups.values():
         group["schedule_count"] = int(step)
     return optimizer
+
+
+def _field(node, name: str, index: int):
+    """Field ``name`` (position ``index``) of an optax NamedTuple, or of the
+    dict or list that orbax restores it as without a template."""
+    if isinstance(node, Mapping):
+        return node[name] if name in node else list(node.values())[index]
+    return node[index]
+
+
+def adamw_state_from_optax(opt_state) -> dict:
+    """bts_tpu's optimizer state as an ``AdamW.state_dict()``.
+
+    ``opt_state`` is ``bts_tpu/training/optim.py``'s ``optax.multi_transform``
+    state as a tree of numpy arrays: optax's NamedTuples, or the dicts and
+    lists that orbax restores them as without a template (a masked leaf is
+    None). Each node is read by field name where it has one, else by
+    position: ``inner_states[label].inner_state`` is ``optax.adamw``'s chain
+    (``ScaleByAdamState(count, mu, nu)``, the weight decay's empty state,
+    ``ScaleByScheduleState(count)``). For ``encoder`` and ``decoder`` the
+    Adam count becomes the group's ``count``, the schedule's its
+    ``schedule_count``, and each unmasked ``mu``/``nu`` leaf the moment of
+    the parameter of its torch name (``convert.tensors_from_flax``: kernels
+    transposed, ``mu`` kept in its dtype, bf16 under
+    ``--adam_bf16_moments``). ``frozen`` (``set_to_zero``) has no state, as
+    here. The groups carry no weight decay: optax keeps it in the
+    transform, not in the state, and ``load_state_dict`` does not read it."""
+    from bts_tpu_torch.models.convert import tensors_from_flax
+
+    inner = _field(opt_state, "inner_states", 0)
+    groups, state = {}, {}
+    for gname in ("encoder", "decoder"):
+        chain = _field(inner[gname], "inner_state", 0)
+        adam, schedule = _field(chain, "0", 0), _field(chain, "2", 2)
+        mu = tensors_from_flax(_field(adam, "mu", 1))
+        nu = tensors_from_flax(_field(adam, "nu", 2))
+        if mu.keys() != nu.keys():
+            raise ValueError(f"optax group {gname!r}: mu and nu hold other parameters")
+        groups[gname] = {"count": int(np.asarray(_field(adam, "count", 0))),
+                         "schedule_count": int(np.asarray(_field(schedule, "count", 0))),
+                         "params": list(mu)}
+        state.update({n: {"mu": mu[n], "nu": nu[n]} for n in mu})
+    return {"format": "bts_tpu_torch.adamw", "groups": groups, "state": state}
 
 
 def create_optimizer(cfg: Config, model: nn.Module, num_total_steps: int):

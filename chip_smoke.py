@@ -160,8 +160,32 @@ Phases, in order; any failure raises and the script exits nonzero:
        480x640, batch 8: f32 within 1e-4 m and bf16 within 0.15 m of the
        single f32 forward, 78 taps and 3 LPG launches a replica;
    (e) the two ranks' step wall ms beside the single process's (a check:
-       gloo stages gradients through the host).
-Each phase's seconds are printed as it ends, and as JSON after phase 11.
+       gloo stages gradients through the host);
+   (f) (a)'s f32 step on the two gloo ranks for ResNet-50-BTS (its
+       trainable ``downsample.1`` BNs through the global BN) and the TF-graph
+       DenseNet161-BTS (every BN frozen: only the gradients communicate),
+       each against one process's step at ``DP_TOL``, the ranks' states
+       equal, 3 + 3 LPG launches a rank;
+12. a run resumed on the card, and ``--async_checkpoint``:
+   (a) DenseNet161-BTS at full width, f32 (TF32 off), deterministic cuDNN,
+       2x416x544 batches as in 7(b): 2 steps, a synchronous and an
+       asynchronous save of that state (the two files equal tensor for
+       tensor), then for each a fresh model and optimizer through
+       ``restore_training_start`` and 2 more steps, bit for bit against 4
+       uninterrupted steps (every parameter, BN statistic and moment, both
+       counts of each group), the counts reset just before the resumed
+       steps: 3 LPG forward and 3 LPG backward launches a step;
+   (b) the checkpoint's bytes and what a save holds the loop for (host
+       clock from the save's call to the end of the next step, less a
+       plain step), synchronous and asynchronous, the first save of a
+       writer (pinned buffers allocated) and a later one, beside the card's
+       name and power limit: a record, not a claim;
+   (c) ``cli.train`` on ``configs/arguments_train_nyu.txt`` with
+       ``--no-do_online_eval --save_freq 1 --max_to_keep 2
+       --async_checkpoint`` for 4 steps: finite losses, 3 LPG backward
+       launches a step, exactly ``model-3`` and ``model-4`` left, each
+       loading with its step.
+Each phase's seconds are printed as it ends, and as JSON after phase 12.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
@@ -169,7 +193,8 @@ for f32 taps and f32 eo, from the bf16 eo forward of phase 6 for bf16 eo,
 from phase 7's ``cli.train`` for the LPG backward, with its per-site times
 and the launch floor; both LPG records carry phase 9's counts by path, and
 they and the taps records phase 10's under ``tf_launches`` and phase 11's
-under ``dp_launches``;
+under ``dp_launches``; both LPG records phase 12's under
+``resume_launches``;
 ``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
 record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
 its own work, ``layer_bound_ms`` the taps form's); the last line is
@@ -1103,6 +1128,41 @@ def dp_train_rank(path, cfg, dp):
     return out
 
 
+def dp_f32_rank(path, cfg, dp):
+    """Phase 11(f), one rank: for each graph of the parent's inputs
+    (``path``: its config, seeded state and single-process state after the
+    step), one f32 step (TF32 off, deterministic cuDNN, so that the result
+    repeats from call to call) through ``make_train_step(cfg, dp)`` on the
+    rank's share of the global batch: its loss, its state's largest
+    difference from the single-process step's, a digest and the launches."""
+    import torch
+
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.parallel.mesh import local_slice
+    from bts_tpu_torch.training.optim import create_optimizer
+    from bts_tpu_torch.training.state import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    inputs = torch.load(path, weights_only=False)
+    local = {k: v.to(dp.device) for k, v in
+             local_slice(inputs["batch"], dp.world, dp.rank).items()}
+    out = {}
+    for name, run in inputs["runs"].items():
+        model = create_model(run["cfg"]).to(dp.device)
+        model.load_state_dict(run["state"], strict=True)
+        optimizer, _ = create_optimizer(run["cfg"], model, 1000)
+        st = TrainState(model, optimizer)
+        reset_kernel_counts()
+        loss = float(make_train_step(run["cfg"], dp)(st, local))
+        after = model.state_dict()
+        out[name] = {"loss": loss, "launches": kernel_counts(),
+                     "diff": state_diff(after, run["want"]), "digest": state_digest(after)}
+        del model, optimizer, st
+    return out
+
+
 @contextlib.contextmanager
 def captured_fd_stdout(into):
     """Send file descriptor 1 (this process's and its children's output) to a
@@ -1210,11 +1270,11 @@ def phase11(torch, Config, parse_args, create_model, create_optimizer, TrainStat
             "focal": torch.full((DP_BATCH,), 518.8579)}
     seeded = create_model(tcfg).state_dict()
 
-    def single_steps(cfg, n):
-        """n single-process steps on the global batch: (last loss, its wall
-        ms, the state after)."""
+    def single_steps(cfg, n, state=seeded):
+        """n single-process steps on the global batch from ``state``: (last
+        loss, its wall ms, the state after)."""
         model = create_model(cfg).cuda()
-        model.load_state_dict(seeded, strict=True)
+        model.load_state_dict(state, strict=True)
         optimizer, _ = create_optimizer(cfg, model, 1000)
         st, step = TrainState(model, optimizer), make_train_step(cfg)
         dev = {k: v.cuda() for k, v in host.items()}
@@ -1275,6 +1335,52 @@ def phase11(torch, Config, parse_args, create_model, create_optimizer, TrainStat
               f"cold), one process {single_ms!r} (cold); bf16 two ranks "
               f"{info['11a']['bf16_step_ms']!r}, one process {bf16_single_ms!r} (each a second "
               f"step; {smi})")
+
+        # (f) The same f32 step on two gloo ranks for ResNet-50-BTS (its
+        # trainable downsample.1 BNs go through the global BN) and the TF
+        # graph (every BN frozen: only the gradients communicate);
+        # deterministic cuDNN on both sides.
+        runs = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name, ecfg in (("resnet50_bts", tcfg.replace(encoder="resnet50_bts")),
+                               ("densenet161_bts tf graph", tcfg.replace(model_flavor="tf"))):
+                state = create_model(ecfg).state_dict()
+                loss, _, after = single_steps(ecfg, 1, state)
+                runs[name] = {"cfg": ecfg, "state": state, "want": after, "single_loss": loss}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+        path = os.path.join(tmp, "f.pt")
+        torch.save({"batch": host, "runs": {k: {c: v[c] for c in ("cfg", "state", "want")}
+                                            for k, v in runs.items()}}, path)
+        t0 = time.perf_counter()
+        ranks = launch.spawn(functools.partial(dp_f32_rank, path), tcfg, DP_RANKS,
+                             devices=["cuda:0"] * DP_RANKS, backend="gloo")
+        spawn_s = time.perf_counter() - t0
+        info["11f"] = {}
+        for name, run in runs.items():
+            got = [out[name] for out in ranks]
+            for r, g in enumerate(got):
+                if abs(g["loss"] - run["single_loss"]) > DP_TOL["rtol"] * abs(run["single_loss"]) \
+                        or g["diff"][0] > DP_TOL["atol"] or g["launches"] != \
+                        dp_expected_launches(steps=1):
+                    raise RuntimeError(f"{name}, rank {r}: loss {g['loss']!r} against one "
+                                       f"process's {run['single_loss']!r}, state difference "
+                                       f"{g['diff']}, launches {g['launches']}")
+            if len({g["digest"] for g in got}) != 1:
+                raise RuntimeError(f"{name}: the two ranks' states differ after the step")
+            launches[f"11f gloo rank 0: 1 f32 step, {name}"] = got[0]["launches"]
+            info["11f"][name] = {"loss": [g["loss"] for g in got],
+                                 "single_loss": run["single_loss"],
+                                 "state_diff": [g["diff"] for g in got]}
+            print(f"(f) {name} 416x544, a global batch of {DP_BATCH} on {DP_RANKS} gloo ranks "
+                  f"sharing cuda:0, one f32 step: loss {info['11f'][name]['loss']!r} against "
+                  f"one process's {run['single_loss']!r}; largest state difference "
+                  f"{info['11f'][name]['state_diff']!r} (atol {DP_TOL['atol']}); the ranks' "
+                  f"states equal; launches a rank {got[0]['launches']}")
+        print(f"(f) {spawn_s:.1f} s for both graphs")
+        del runs
 
         # (b) One rank over NCCL: the DDP step against the plain step.
         path = os.path.join(tmp, "b.pt")
@@ -1397,6 +1503,232 @@ def phase11(torch, Config, parse_args, create_model, create_optimizer, TrainStat
     del model
     torch.cuda.empty_cache()
     print(json.dumps({"data_parallel": info, "dp_launches": launches, "device": smi}))
+    return launches
+
+
+# Phase 12: a run resumed on the card, and checkpoints written in the
+# background (--async_checkpoint).
+RESUME_STEPS = 2  # steps before the save, and steps after the resume
+ASYNC_TRAIN_STEPS, ASYNC_KEEP = 4, 2
+
+
+def train_state_snapshot(st):
+    """A run's whole state on the host: step, the model's state dict (BN
+    statistics included), each moment and each group's two counts."""
+    return {"step": st.step,
+            "counts": {g: (grp["count"], grp["schedule_count"])
+                       for g, grp in st.optimizer.groups.items()},
+            "tensors": {**{f"model/{k}": v.detach().cpu().clone()
+                           for k, v in st.model.state_dict().items()},
+                        **{f"moment/{n}/{k}": v.detach().cpu().clone()
+                           for n, s in st.optimizer.state.items() for k, v in s.items()}}}
+
+
+def flat_tensors(d, prefix=""):
+    """The tensors of a nested checkpoint dict by their path."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat_tensors(v, f"{prefix}{k}/"))
+        elif hasattr(v, "dtype"):
+            out[prefix + k] = v
+    return out
+
+
+def first_unequal(torch, got, want):
+    """The first path whose tensor differs in keys, dtype or any bit."""
+    if got.keys() != want.keys():
+        return f"keys differ: {sorted(got.keys() ^ want.keys())[:3]}"
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            return k
+    return None
+
+
+def host_ms(torch, fn):
+    """Host ms of ``fn`` and the device work it enqueues."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def timed_save(torch, ckpt_lib, writer, path, st, async_save, step, plain_ms):
+    """One save of ``st`` by ``writer`` then one ``step``: the ms of the
+    call, the ms the two held the loop beyond ``plain_ms`` (a step alone),
+    and how long after the step the file was written."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    writer.save(path, ckpt_lib.checkpoint_payload(st), async_save)
+    call = (time.perf_counter() - t0) * 1e3
+    step()
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    writer.wait()
+    return {"call_ms": call, "held_ms": total - plain_ms,
+            "wait_after_step_ms": (time.perf_counter() - t1) * 1e3}
+
+
+def phase12(torch, Config, create_model, create_optimizer, TrainState, make_train_step,
+            cli_train, counts, reset_counts, smi):
+    """Phase 12: (a) the f32 DenseNet161-BTS train step resumed through
+    ``restore_training_start`` from a synchronous and from an asynchronous
+    save, bit for bit against an uninterrupted run; (b) what each kind of
+    save holds the loop for; (c) ``cli.train --async_checkpoint``. Returns
+    the kernel launches of each path."""
+    from bts_tpu_torch.training import checkpoint as ckpt_lib
+
+    launches, info = {}, {}
+    tcfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=MAX_DEPTH, bts_size=512,
+                  learning_rate=1e-4, weight_decay=1e-2, adam_eps=1e-3, batch_size=2,
+                  input_height=416, input_width=544)
+    gen = torch.Generator().manual_seed(12)
+    batches = [{"image": torch.randn(2, 416, 544, 3, generator=gen).cuda(),
+                "depth": (torch.rand(2, 416, 544, 1, generator=gen) * 9.5 + 0.05).cuda(),
+                "focal": torch.full((2,), 518.8579, device="cuda")}
+               for _ in range(2 * RESUME_STEPS)]
+    seeded = create_model(tcfg).state_dict()
+    step = make_train_step(tcfg)
+
+    def fresh(path=""):
+        """The seeded run, or a fresh model and optimizer resumed from
+        ``path`` as cli.train resumes."""
+        c = tcfg.replace(checkpoint_path=path)
+        model = create_model(c)
+        model.load_state_dict(seeded, strict=True)
+        model.cuda()
+        optimizer, _ = create_optimizer(c, model, 1000)
+        st, _ = ckpt_lib.restore_training_start(c, TrainState(model, optimizer),
+                                                ckpt_lib.BestTracker())
+        return st
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) 4 f32 steps (TF32 off, as phase 3 set it) against 2, a save, a
+        # resume and 2 more.
+        whole = fresh()
+        for b in batches:
+            step(whole, b)
+        want = train_state_snapshot(whole)
+        del whole
+        part = fresh()
+        for b in batches[:RESUME_STEPS]:
+            step(part, b)
+        paths = {mode: os.path.join(tmp, f"model-{RESUME_STEPS}-{mode}")
+                 for mode in ("sync", "async")}
+        ckpt_lib.save_checkpoint(paths["sync"], part)
+        ckpt_lib.save_checkpoint(paths["async"], part, async_save=True)
+        ckpt_lib.wait_for_async_saves()
+        saved = {m: flat_tensors(ckpt_lib.load_checkpoint_dict(p)) for m, p in paths.items()}
+        bad = first_unequal(torch, saved["async"], saved["sync"])
+        if bad:
+            raise RuntimeError(f"the async save differs from the sync save at {bad}")
+        nbytes = os.path.getsize(paths["sync"])
+        for mode, path in paths.items():
+            st = fresh(path)
+            reset_counts()
+            for b in batches[RESUME_STEPS:]:
+                step(st, b)
+            torch.cuda.synchronize()
+            launched = counts()
+            got = train_state_snapshot(st)
+            del st
+            expect = {"taps": 0, "eo": 0, "lpg": 3 * RESUME_STEPS,
+                      "lpg_backward": 3 * RESUME_STEPS}
+            if launched != expect:
+                raise RuntimeError(f"resumed from the {mode} save: launches {launched}, "
+                                   f"expected {expect}")
+            bad = first_unequal(torch, got["tensors"], want["tensors"])
+            if bad or (got["step"], got["counts"]) != (want["step"], want["counts"]):
+                raise RuntimeError(f"resumed from the {mode} save: {bad or 'counts'} differs "
+                                   f"from the uninterrupted run (step {got['step']}, counts "
+                                   f"{got['counts']}; want {want['step']}, {want['counts']})")
+            launches[f"12a {RESUME_STEPS} f32 steps resumed from the {mode} save"] = launched
+        print(f"(a) DenseNet161-BTS f32 (TF32 off, deterministic cuDNN) 2x416x544: "
+              f"{RESUME_STEPS} steps, a save, restore_training_start and {RESUME_STEPS} more "
+              f"equal bit for bit to {2 * RESUME_STEPS} uninterrupted steps, from the sync and "
+              f"from the async save ({len(want['tensors'])} tensors: parameters, BN statistics, "
+              f"moments; counts {want['counts']}); the async file equals the sync file tensor "
+              f"for tensor; launches {launched} ({RESUME_STEPS} steps)")
+
+        # (b) What a save holds the loop for: the host ms from the save's call
+        # to the end of the next step, less a plain step's ms (the median of
+        # 3). Each kind on a fresh writer: its first save allocates the pinned
+        # buffers, a later one reuses them.
+        st = fresh(paths["sync"])
+
+        plain = statistics.median(host_ms(torch, lambda: step(st, batches[0]))
+                                  for _ in range(3))
+        held = {}
+        for async_save in (False, True):
+            writer = ckpt_lib.CheckpointWriter()
+            for name in (f"{'async' if async_save else 'sync'}_{n}" for n in ("first", "later")):
+                held[name] = timed_save(torch, ckpt_lib, writer, os.path.join(tmp, name), st,
+                                        async_save, lambda: step(st, batches[0]), plain)
+        del st
+        info["12b"] = {"bytes": nbytes, "plain_step_ms": plain, **held}
+        print(f"(b) a checkpoint of {nbytes} bytes; a plain f32 step {plain!r} ms; held (save "
+              f"call to the next step's end, less a plain step; host clock, a record and not a "
+              f"claim; {smi}):")
+        for name, h in held.items():
+            print(f"    {name}: held {h['held_ms']!r} ms, the call {h['call_ms']!r} ms, the "
+                  f"write done {h['wait_after_step_ms']!r} ms after the step")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) cli.train on the recipe, online eval off, a save every step, 2 kept,
+    # written in the background.
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = write_nyu_frames(os.path.join(tmp, "data"), TRAIN_BATCH * ASYNC_TRAIN_STEPS)
+        log_dir = os.path.join(tmp, "logs")
+        args_path, overrides = train_args(manifest, manifest, log_dir)
+        overrides += ["--no-do_online_eval", "--save_freq", "1", "--max_to_keep",
+                      str(ASYNC_KEEP), "--async_checkpoint", "--model_name", "async_run"]
+        capture = io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(Tee(sys.stdout, capture)):
+                rc = cli_train.main(["@" + args_path, *overrides])
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launched = counts()
+        finally:
+            os.chdir(cwd)
+        steps = [(int(gs), float(loss)) for gs, _, loss in STEP_LINE.findall(capture.getvalue())]
+        if rc != 0 or [gs for gs, _ in steps] != list(range(1, ASYNC_TRAIN_STEPS + 1)) or not \
+                all(math.isfinite(loss) for _, loss in steps):
+            raise RuntimeError(f"cli.train --async_checkpoint: rc {rc}, logged {steps}")
+        if (launched["lpg_backward"] != 3 * ASYNC_TRAIN_STEPS
+                or launched["lpg"] < 3 * ASYNC_TRAIN_STEPS or launched["taps"] or launched["eo"]):
+            raise RuntimeError(f"cli.train --async_checkpoint: kernel launches {launched}")
+        run_dir = os.path.join(log_dir, "async_run")
+        kept = ckpt_lib.list_step_checkpoints(run_dir)
+        want_kept = list(range(ASYNC_TRAIN_STEPS - ASYNC_KEEP + 1, ASYNC_TRAIN_STEPS + 1))
+        if sorted(kept) != want_kept or any(n.endswith(".tmp") for n in os.listdir(run_dir)):
+            raise RuntimeError(f"cli.train --async_checkpoint left {sorted(os.listdir(run_dir))}")
+        for s, path in kept.items():
+            ckpt = ckpt_lib.load_checkpoint_dict(path)
+            if ckpt["global_step"] != s or not all(
+                    bool(torch.isfinite(v).all()) for v in ckpt["model"].values()
+                    if v.is_floating_point()):
+                raise RuntimeError(f"{path}: global_step {ckpt['global_step']}, or not finite")
+        launches["12c cli.train --async_checkpoint"] = launched
+        info["12c"] = {"losses": [loss for _, loss in steps], "seconds": elapsed}
+        print(f"(c) cli.train --async_checkpoint --save_freq 1 --max_to_keep {ASYNC_KEEP}: "
+              f"{ASYNC_TRAIN_STEPS} steps at batch {TRAIN_BATCH} (bf16, device_augment), losses "
+              f"{info['12c']['losses']!r}, kernel launches {launched}; kept "
+              f"{['model-%d' % s for s in sorted(kept)]}, each loading with its step; "
+              f"{elapsed:.1f} s including model build")
+    print(json.dumps({"resume": info, "resume_launches": launches, "device": smi}))
     return launches
 
 
@@ -2172,6 +2504,10 @@ def main():
     dp_launches = phase11(torch, Config, parse_args, create_model, create_optimizer, TrainState,
                           make_train_step, cli_train, run_online_eval, load_checkpoint,
                           list_step_checkpoints, smi)
+
+    phase("12 resume on the card, --async_checkpoint")
+    resume_launches = phase12(torch, Config, create_model, create_optimizer, TrainState,
+                              make_train_step, cli_train, counts, reset_counts, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -2221,7 +2557,8 @@ def main():
          "train_sites": dict(zip(("ms", "plain_ms", "bound_ms"), lpg_fwd_train)),
          "zoo_launches": {k: v["lpg"] for k, v in zoo_launches.items()},
          "tf_launches": {k: v["lpg"] for k, v in tf_launches.items()},
-         "dp_launches": {k: v["lpg"] for k, v in dp_launches.items()}},
+         "dp_launches": {k: v["lpg"] for k, v in dp_launches.items()},
+         "resume_launches": {k: v["lpg"] for k, v in resume_launches.items()}},
         {"name": "lpg_backward", "route": "cuda", "source": LPG_SOURCE,
          "replaces": LPG_BWD_REPLACES, "grad_dtype": "bfloat16",
          "launches": train_path["lpg_backward"], "launches_per_step": 3,
@@ -2232,7 +2569,8 @@ def main():
          "tf_launches": {k: v["lpg_backward"] for k, v in tf_launches.items()
                          if v["lpg_backward"]},
          "dp_launches": {k: v["lpg_backward"] for k, v in dp_launches.items()
-                         if v["lpg_backward"]}},
+                         if v["lpg_backward"]},
+         "resume_launches": {k: v["lpg_backward"] for k, v in resume_launches.items()}},
         dense_record("taps", "bfloat16", serving, forwards),
         dense_record("taps", "float32", f32_path["taps"], 1),
         dense_record("eo", "bfloat16", eo_path, 1),

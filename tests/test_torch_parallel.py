@@ -308,6 +308,32 @@ def test_launcher_environments_decision_table():
     assert mesh.process_shard_info() == (1, 0)
 
 
+
+def test_launcher_rank_takes_the_device_flag(monkeypatch):
+    """Under a launcher cli.train passes its ``--device``: ``cpu`` joins the
+    group over gloo on the CPU; the default is the local rank's card, and a
+    rank with no card raises naming ``--device cpu`` (as cli.test does)
+    rather than train on the CPU unasked."""
+    env = {"WORLD_SIZE": "2", "RANK": "1", "LOCAL_RANK": "1"}
+    groups = []
+    monkeypatch.setattr(mesh.dist, "init_process_group",
+                        lambda backend, **kw: groups.append((backend, kw["world_size"],
+                                                             kw["rank"])))
+    monkeypatch.setattr(mesh.dist, "is_initialized", lambda: False)
+    assert mesh.env_device("cpu", env) == torch.device("cpu")
+    assert mesh.maybe_init_distributed(env, device="cpu")
+    assert groups == [("gloo", 2, 1)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert mesh.env_device("", env) == torch.device("cuda:1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mesh.env_device("", env)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli_train.main(["--mode", "train"])
+    assert groups == [("gloo", 2, 1)]  # no group was joined
+
 def test_local_slice_is_the_ranks_block_of_the_global_batch():
     batch = {"image": np.arange(8).reshape(4, 2), "focal": np.arange(4.0)}
     got = [mesh.local_slice(batch, 2, r) for r in range(2)]

@@ -51,15 +51,17 @@ def to_flax(named, template):
 
 
 def named_leaves(tree):
-    """The non-masked leaves of an optax state tree by torch name, as numpy
-    in torch's layout."""
+    """The non-masked leaves of an optax state tree by torch name (a conv
+    bias named by its kernel's shape, as the TF graph's reduc convs need),
+    as numpy in torch's layout."""
+    leaves = {tuple(str(getattr(k, "key", k)) for k in path): leaf
+              for path, leaf in jax.tree_util.tree_leaves_with_path(
+                  tree, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+              if not isinstance(leaf, optax.MaskedNode)}
     out = {}
-    for path, leaf in jax.tree_util.tree_leaves_with_path(
-            tree, is_leaf=lambda x: isinstance(x, optax.MaskedNode)):
-        if isinstance(leaf, optax.MaskedNode):
-            continue
-        keys = tuple(str(getattr(k, "key", k)) for k in path)
+    for keys, leaf in leaves.items():
         arr = np.asarray(leaf)
-        out[flax_path_to_torch_key(keys, arr.shape)] = (
+        kernel = leaves.get(keys[:-1] + ("kernel",), leaf)
+        out[flax_path_to_torch_key(keys, np.shape(kernel))] = (
             arr.transpose(3, 2, 0, 1) if keys[-1] == "kernel" else arr)
     return out
