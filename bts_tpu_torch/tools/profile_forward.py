@@ -21,10 +21,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
+
+from bts_tpu_torch.tools.benchtools import card
 
 # Kinds of kernel, by the first pattern found in the lower-cased name.
 KINDS = (
@@ -103,8 +104,7 @@ def main(argv=None):
     from bts_tpu_torch.config import Config
     from bts_tpu_torch.models.bts import create_model
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card(torch.device("cuda"))
     print(smi, flush=True)
     cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512,
                  model_flavor=args.model_flavor)

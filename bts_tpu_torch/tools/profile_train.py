@@ -19,11 +19,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
 
+from bts_tpu_torch.tools.benchtools import card
 from bts_tpu_torch.tools.profile_forward import kind
 
 RANGES = ("train_step/augment", "train_step/forward", "train_step/backward",
@@ -111,8 +111,7 @@ def main(argv=None):
     if not bf16:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card(torch.device("cuda"))
     print(smi, flush=True)
     runs = []
     for b in args.batches:

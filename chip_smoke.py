@@ -184,8 +184,36 @@ Phases, in order; any failure raises and the script exits nonzero:
        ``--no-do_online_eval --save_freq 1 --max_to_keep 2
        --async_checkpoint`` for 4 steps: finite losses, 3 LPG backward
        launches a step, exactly ``model-3`` and ``model-4`` left, each
-       loading with its step.
-Each phase's seconds are printed as it ends, and as JSON after phase 12.
+       loading with its step;
+13. the benchmark tools (``bts_tpu_torch/tools/bench*.py``, the port's
+    ``bench.py`` and ``scripts/bench_{train,zoo,lpg}.py``) through their
+    ``main``, under PyTorch's default cuDNN and matmul settings, each line
+    printed after the card's, each run's counts reset just before it and
+    read just after:
+   (a) ``bench`` at its defaults (DenseNet161-BTS NYU 480x640, batch 128,
+       bf16): 78 taps and 3 LPG launches a forward over its 2 warm-up and 16
+       timed forwards, every sum read back finite;
+   (b) ``bench --lpg-check`` (batch 64): the kernels' form against the plain
+       one (``lpg_impl xla``, ``dense_impl plain``), its maps within 0.15 m;
+       launches from the kernels' form only;
+   (c) ``bench_train`` at its defaults (batch 16, 416x544 from 480x640,
+       bf16, ``--device_augment``): 3 LPG forward and 3 LPG backward
+       launches a step, finite losses;
+   (d) ``bench_zoo`` at batch 128 with ``--iters 6 --delay 2``, one call an
+       encoder of its seven: 3 LPG launches a forward, and 58 (DenseNet121)
+       or 78 (DenseNet161) taps;
+   (e) ``bench_lpg`` at its defaults: each chain captured as a CUDA graph
+       and timed by its replays, every row so timed (the counts are the
+       captured wrapper calls: 6 x 2 x 580 LPG, 6 x 580 LPG backward);
+   (f) the kernels against their plain versions at these runs' shapes:
+       ``bench``'s batch-128 forward in the kernels' form against the plain
+       form on the same image and weights (within 0.15 m), the taps wrapper
+       on the first and last dense layer of each block at batch 128, on the
+       block buffers' strided views that forward filled (DENSE_TOL), the LPG
+       forward bit for bit and its backward within LPG_BWD_TOL on
+       ``bench_lpg``'s B=16 planes and at ``bench_train``'s batch-16 sites,
+       and the LPG forward at ``bench``'s batch-128 sites.
+Each phase's seconds are printed as it ends, and as JSON after phase 13.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
@@ -194,7 +222,8 @@ from phase 7's ``cli.train`` for the LPG backward, with its per-site times
 and the launch floor; both LPG records carry phase 9's counts by path, and
 they and the taps records phase 10's under ``tf_launches`` and phase 11's
 under ``dp_launches``; both LPG records phase 12's under
-``resume_launches``;
+``resume_launches``; both LPG records and the bf16 taps record phase 13's
+under ``bench_launches``;
 ``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
 record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
 its own work, ``layer_bound_ms`` the taps form's); the last line is
@@ -544,13 +573,33 @@ def lpg_backward_magnitudes(torch, lpg, pe, grad, r, max_depth):
     """Per cell and component, the sum of the magnitudes of the terms that
     ``lpg_backward_scaled`` adds (its error scale)."""
     b, h, w, _ = pe.shape
-    g = grad.float() / max_depth
+    g = grad.float() if max_depth is None else grad.float() / max_depth
     den, n4, u = lpg._den(pe, r)
     inv = 1.0 / den
     gt = g.reshape(b, h, r, w, r)
     c = (gt * n4 * inv * inv).abs()
     return torch.stack([(c * u.abs()).sum((2, 4)), (c * u.abs()[:, None, None]).sum((2, 4)),
                         c.sum((2, 4)), (gt * inv).abs().sum((2, 4))], dim=-1)
+
+
+def lpg_backward_against_plain(torch, lpg_cuda, lpg, pe, grad, r, max_depth, where):
+    """One ``lpg_backward_cuda`` launch against ``lpg_backward_scaled``, each
+    component within LPG_BWD_TOL of the sum of its terms' magnitudes. Returns
+    (max abs err, largest error / terms' magnitude)."""
+    before = lpg_cuda.BWD_LAUNCHES
+    got = lpg_cuda.lpg_backward_cuda(pe, grad, r, max_depth)
+    torch.cuda.synchronize()
+    if lpg_cuda.BWD_LAUNCHES != before + 1:
+        raise RuntimeError("lpg_backward_cuda did not count its launch")
+    want = lpg.lpg_backward_scaled(pe, grad, r, max_depth)
+    scale = lpg_backward_magnitudes(torch, lpg, pe, grad, r, max_depth)
+    err = (got - want).abs()
+    limit = LPG_BWD_TOL["atol"] + LPG_BWD_TOL["rtol"] * scale
+    if not bool((err <= limit).all()):
+        worst = (err / limit).max().item()
+        raise RuntimeError(f"lpg backward {where}: error {worst!r} x its limit "
+                           f"(max abs err {err.max().item()!r})")
+    return err.max().item(), (err / scale.clamp_min(1e-30)).max().item()
 
 
 def launch_floor_ms(torch):
@@ -585,23 +634,11 @@ def check_lpg_train(torch, lpg_cuda, lpg):
                 grad = torch.randn(b, 3, h * r, w * r, generator=gen).to(dt).cuda()[:, 1]
             else:
                 grad = torch.randn(b, h * r, w * r, generator=gen).to(dt).cuda()
-            before = lpg_cuda.BWD_LAUNCHES
-            got = lpg_cuda.lpg_backward_cuda(pe, grad, r, MAX_DEPTH)
-            torch.cuda.synchronize()
-            if lpg_cuda.BWD_LAUNCHES != before + 1:
-                raise RuntimeError("lpg_backward_cuda did not count its launch")
-            want = lpg.lpg_backward_scaled(pe, grad, r, MAX_DEPTH)
-            scale = lpg_backward_magnitudes(torch, lpg, pe, grad, r, MAX_DEPTH)
-            err = (got - want).abs()
-            limit = LPG_BWD_TOL["atol"] + LPG_BWD_TOL["rtol"] * scale
-            if not bool((err <= limit).all()):
-                worst = (err / limit).max().item()
-                raise RuntimeError(f"lpg backward r={r} B={b} {h}x{w} grad {name}: error "
-                                   f"{worst!r} x its limit (max abs err {err.max().item()!r})")
-            share = (err / scale.clamp_min(1e-30)).max().item()
             where = f"r={r} B={b} grid {h}x{w} grad {name}{' strided' if strided else ''}"
+            err, share = lpg_backward_against_plain(torch, lpg_cuda, lpg, pe, grad, r, MAX_DEPTH,
+                                                    where)
             if i >= len(TRAIN_SITES):
-                print(f"lpg backward {where}: within tolerance, max abs err {err.max().item()!r}, "
+                print(f"lpg backward {where}: within tolerance, max abs err {err!r}, "
                       f"largest error / terms' magnitude {share!r}")
                 continue
             k = cuda_median_ms(lambda: lpg_cuda.lpg_backward_cuda(pe, grad, r, MAX_DEPTH))
@@ -610,13 +647,13 @@ def check_lpg_train(torch, lpg_cuda, lpg):
             a = cuda_median_ms(lambda: (one.add_(1),
                                         lpg_cuda.lpg_backward_cuda(pe, grad, r, MAX_DEPTH)))
             bound = lpg_backward_bound(b, h, w, r, dt.itemsize)[0]
-            print(f"lpg backward {where}: max abs err {err.max().item()!r} (largest error / "
+            print(f"lpg backward {where}: max abs err {err!r} (largest error / "
                   f"terms' magnitude {share!r}), kernel {k!r} ms, plain {p!r} ms (median of 50 "
                   f"samples of 10 calls); bound {bound * 1e3!r} us by bytes, {bound / k:.2%} of "
                   f"it; a one-element add then the kernel {a!r} ms")
             acc = bwd.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                         "bound_ms": 0.0, "sites": []})
-            acc["max_abs_err"] = max(acc["max_abs_err"], err.max().item())
+            acc["max_abs_err"] = max(acc["max_abs_err"], err)
             acc["ms"] += k
             acc["plain_ms"] += p
             acc["bound_ms"] += bound
@@ -1732,6 +1769,201 @@ def phase12(torch, Config, create_model, create_optimizer, TrainState, make_trai
     return launches
 
 
+# Phase 13: the port's benchmark tools (bts_tpu_torch/tools/bench*.py) at
+# their defaults; bench_zoo cut to 6 calls at delay 2, an encoder a call.
+BENCH_ZOO_FLAGS = ["--iters", "6", "--delay", "2"]
+DENSENET_LAYERS = {"densenet121_bts": 58, "densenet161_bts": DENSE_LAYERS}
+BENCH_BATCH, BENCH_TRAIN_BATCH = 128, 16  # bench's and bench_train's defaults
+
+
+def check_bench_forward(torch, fd, fdc):
+    """Phase 13, ``bench``'s forward at its defaults (batch 128, its seeded
+    image and weights): the kernels' form against the plain form, the depth
+    maps within ``bench.LPG_CHECK_TOL_M``; and the taps wrapper on the first
+    and the last dense layer of each block, given the NHWC views of the block
+    buffers that forward filled (the strides it gave them; the first block's
+    buffer holds 943M elements) and writing into a buffer of the same
+    strides, against ``fused_dense_reference`` at DENSE_TOL, as is what the
+    forward wrote there. Returns {"max_abs_diff_m", "taps": {shape: max abs
+    err}}."""
+    from bts_tpu_torch.models.encoders.densenet import DenseBlock
+    from bts_tpu_torch.tools import bench, benchtools
+
+    device = torch.device("cuda")
+    (image,) = benchtools.seeded_images(BENCH_BATCH, 480, 640, device, n=1)
+    focal = benchtools.focal(BENCH_BATCH, device)
+    model, cfg = bench.load_form("default", "densenet161_bts", device)
+    blocks = [m for m in model.encoder.modules() if isinstance(m, DenseBlock)]
+    bufs = []
+    hooks = [blk.register_forward_hook(lambda mod, args, out: bufs.append(out)) for blk in blocks]
+    depth = bench.depth_map(model, cfg, image, focal, device).float()
+    for hook in hooks:
+        hook.remove()
+    taps = {}
+    with torch.inference_mode():
+        for blk, buf in zip(blocks, bufs, strict=True):
+            nhwc = buf.permute(0, 2, 3, 1)
+            fresh = torch.empty_like(nhwc)
+            name = str(nhwc.dtype).removeprefix("torch.")
+            layers = list(blk.values())
+            for layer in (layers[0], layers[-1]):
+                c, g = layer.norm1.num_features, layer.conv2.out_channels
+                s1, b1, w1, s2, b2, w2, _, kmajor = layer.folded(nhwc.dtype, False)
+                x = nhwc[..., :c]
+                got = fdc.fused_dense_cuda(x, s1, b1, w1, s2, b2, w2, out=fresh[..., c:c + g],
+                                           kmajor=kmajor)
+                want = fd.fused_dense_reference(x, s1, b1, w1, s2, b2, w2)
+                torch.testing.assert_close(got, want, **DENSE_TOL[name])
+                torch.testing.assert_close(nhwc[..., c:c + g], want, **DENSE_TOL[name])
+                shape = f"B={BENCH_BATCH} {x.shape[1]}x{x.shape[2]} C={c} of {nhwc.shape[3]}"
+                taps[shape] = (got.float() - want.float()).abs().max().item()
+                print(f"bench dense taps {name} {shape}: against the plain version, max_abs_err "
+                      f"{taps[shape]!r} (the forward's own channels within DENSE_TOL too)")
+                del got, want
+    del model, bufs, blk, buf, nhwc, fresh, x
+    torch.cuda.empty_cache()
+    model, cfg = bench.load_form("plain", "densenet161_bts", device)
+    plain = bench.depth_map(model, cfg, image, focal, device).float()
+    del model
+    if not (bool(torch.isfinite(depth).all()) and bool(torch.isfinite(plain).all())):
+        raise RuntimeError("bench forward at batch 128: a depth map is not finite")
+    diff = (depth - plain).abs().max().item()
+    print(f"bench forward B={BENCH_BATCH} 480x640 bf16: the kernels' form against the plain "
+          f"form, max abs diff {diff!r} m (under {bench.LPG_CHECK_TOL_M} m)")
+    if not diff < bench.LPG_CHECK_TOL_M:
+        raise RuntimeError(f"bench forward at batch 128: the forms differ by {diff} m")
+    torch.cuda.empty_cache()
+    return {"max_abs_diff_m": diff, "taps": taps}
+
+
+def check_bench_lpg(torch, lpg_cuda, lpg):
+    """Phase 13, both LPG kernels at the tools' own shapes against their
+    plain versions, the forward bit for bit, the backward within LPG_BWD_TOL
+    (``lpg_backward_against_plain``): ``bench_lpg``'s six B=16 plane draws,
+    the bare map and the gradient its forward+backward rows take (2 * map);
+    ``bench_train``'s sites at batch 16 (decoded planes, ``/ MAX_DEPTH``), bf16
+    out, f32 and bf16 gradients; ``bench``'s NYU sites at batch 128, the
+    forward in f32 and bf16. Returns {case: backward max abs err, or 0.0 for
+    a forward alone}."""
+    from bts_tpu_torch.tools import bench_lpg
+
+    gen = torch.Generator().manual_seed(13)
+    res = {}
+
+    def forward(pe, r, max_depth, dt):
+        got = lpg_cuda.lpg_cuda(pe, r, max_depth, dt)
+        want = (lpg.lpg_reference(pe, r) if max_depth is None
+                else lpg.lpg_scaled_reference(pe, r, max_depth, dt))
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        return want
+
+    def decoded(b, h, w):
+        logits = torch.randn(b, h, w, 3, generator=gen).cuda()
+        return lpg.normalize_plane(lpg.decode_plane_eq(logits, MAX_DEPTH)).contiguous()
+
+    rng = np.random.default_rng(0)
+    for r, h, w in bench_lpg.CASES:
+        pe = torch.from_numpy(bench_lpg.seeded_planes(rng, h, w)).cuda()
+        where = f"bench_lpg r={r} B={bench_lpg.B} grid {h}x{w}"
+        depth = forward(pe, r, None, torch.float32)
+        res[where], share = lpg_backward_against_plain(torch, lpg_cuda, lpg, pe, 2 * depth, r,
+                                                       None, where)
+        print(f"lpg {where}: forward bit-equal, backward max abs err {res[where]!r} (largest "
+              f"error / terms' magnitude {share!r})")
+    for r, h, w in TRAIN_SITES:
+        pe = decoded(BENCH_TRAIN_BATCH, h, w)
+        forward(pe, r, MAX_DEPTH, torch.bfloat16)
+        for dt in (torch.float32, torch.bfloat16):
+            grad = torch.randn(BENCH_TRAIN_BATCH, h * r, w * r, generator=gen).to(dt).cuda()
+            where = (f"bench_train r={r} B={BENCH_TRAIN_BATCH} grid {h}x{w} grad "
+                     f"{str(dt).removeprefix('torch.')}")
+            res[where], share = lpg_backward_against_plain(torch, lpg_cuda, lpg, pe, grad, r,
+                                                           MAX_DEPTH, where)
+            print(f"lpg {where}: forward (bf16 out) bit-equal, backward max abs err "
+                  f"{res[where]!r} (largest error / terms' magnitude {share!r})")
+    for r, h, w in NYU_SITES:
+        pe = decoded(BENCH_BATCH, h, w)
+        for dt in (torch.float32, torch.bfloat16):
+            forward(pe, r, MAX_DEPTH, dt)
+        where = f"bench r={r} B={BENCH_BATCH} grid {h}x{w}"
+        res[where] = 0.0
+        print(f"lpg {where}: forward bit-equal in f32 and bf16 out")
+    return res
+
+
+@contextlib.contextmanager
+def torch_defaults(torch):
+    """PyTorch's own cuDNN and matmul settings, as a user's process has them
+    (phases 3 and 11-12 turn TF32 off and cuDNN deterministic); restored after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = (
+        True, False, False, False)
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+
+
+def phase13(torch, counts, reset_counts, smi):
+    """Phase 13: each benchmark tool through its ``main`` (its lines printed
+    as the tool prints them, each after the card's), the counts reset just
+    before each run and read just after: (a) ``bench``, 2 warm-up and 16
+    timed forwards at batch 128, 78 taps and 3 LPG launches each, every sum
+    read back finite; (b) ``bench --lpg-check`` at batch 64, the default
+    form's 10 forwards (its map, a warm-up, 8 timed) through the kernels and
+    the plain form's through none, the maps within 0.15 m; (c)
+    ``bench_train``, 2 warm-up and 30 timed steps, 3 LPG forward and 3 LPG
+    backward launches each, finite losses; (d) ``bench_zoo`` per encoder at
+    batch 128 with ``BENCH_ZOO_FLAGS``, 8 forwards each, 3 LPG launches and
+    the DenseNets' 58 or 78 taps a forward; (e) ``bench_lpg``, whose chains
+    are captured as CUDA graphs, every row so timed: its counts are the
+    wrapper calls captured (a replay launches without the wrapper), not the
+    launches timed, a warm-up chain of 2 and the captured chain for K1 and
+    K2 in each case's kernel rows. Then the kernels against their plain
+    versions at these runs' shapes (``check_bench_forward``,
+    ``check_bench_lpg``). Returns the launches of each run."""
+    from bts_tpu_torch.ops import fused_dense, fused_dense_cuda, lpg, lpg_cuda
+    from bts_tpu_torch.tools import bench, bench_lpg, bench_train, bench_zoo
+
+    launches, records = {}, {}
+
+    def run(label, tool, argv, forwards=0, steps=0, layers=DENSE_LAYERS, want=None):
+        reset_counts()
+        records[label] = tool.main(argv)
+        torch.cuda.synchronize()
+        launches[label] = got = counts()
+        want = want or {"taps": layers * forwards, "eo": 0, "lpg": 3 * (forwards + steps),
+                        "lpg_backward": 3 * steps}
+        if got != want:
+            raise RuntimeError(f"{label}: kernel launches {got}, expected {want}")
+        print(f"{label}: kernel launches {got}", flush=True)
+
+    torch.cuda.empty_cache()
+    chain_calls = sum(2 + k for k in (bench_lpg.K1, bench_lpg.K2))  # warm-up + captured chain
+    with torch_defaults(torch):
+        run("bench", bench, [], forwards=2 + 16)
+        run("bench --lpg-check", bench, ["--lpg-check"], forwards=1 + 1 + 8)
+        run("bench_train", bench_train, [], steps=2 + 30)
+        for enc in bench_zoo.ZOO:
+            run(f"bench_zoo {enc}", bench_zoo, [enc, *BENCH_ZOO_FLAGS], forwards=2 + 6,
+                layers=DENSENET_LAYERS.get(enc, 0))
+            torch.cuda.empty_cache()
+        run("bench_lpg (captured)", bench_lpg, [], want={
+            "taps": 0, "eo": 0, "lpg": len(bench_lpg.CASES) * 2 * chain_calls,
+            "lpg_backward": len(bench_lpg.CASES) * chain_calls})
+        lpg_rows = records["bench_lpg (captured)"]
+        if not all(row["method"] == "cuda_graph" and all(
+                math.isfinite(row[f"{impl}_{kind}_us"]) for impl in bench_lpg.IMPLS
+                for kind in ("fwd", "fwdbwd")) for row in lpg_rows):
+            raise RuntimeError(f"bench_lpg: rows {lpg_rows}")
+        checks = {"forward": check_bench_forward(torch, fused_dense, fused_dense_cuda),
+                  "lpg": check_bench_lpg(torch, lpg_cuda, lpg)}
+    print(json.dumps({"bench": records, "bench_launches": launches, "bench_checks": checks,
+                      "device": smi}))
+    return launches
+
+
 def main():
     import torch
 
@@ -2508,6 +2740,9 @@ def main():
     phase("12 resume on the card, --async_checkpoint")
     resume_launches = phase12(torch, Config, create_model, create_optimizer, TrainState,
                               make_train_step, cli_train, counts, reset_counts, smi)
+
+    phase("13 the benchmark tools: bench, bench --lpg-check, bench_train, bench_zoo, bench_lpg")
+    bench_launches = phase13(torch, counts, reset_counts, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -2546,6 +2781,8 @@ def main():
                 "dp_launches": {k: v["taps"] for k, v in dp_launches.items()
                                 if v["taps"] and k.endswith(f"{name}, {DP_RANKS} replicas")}}
                if impl == "taps" else {}),
+            "bench_launches": {k: v[impl] for k, v in bench_launches.items()
+                               if v[impl] and name == "bfloat16"},
         }
 
     print(json.dumps({"kernels": [
@@ -2558,7 +2795,8 @@ def main():
          "zoo_launches": {k: v["lpg"] for k, v in zoo_launches.items()},
          "tf_launches": {k: v["lpg"] for k, v in tf_launches.items()},
          "dp_launches": {k: v["lpg"] for k, v in dp_launches.items()},
-         "resume_launches": {k: v["lpg"] for k, v in resume_launches.items()}},
+         "resume_launches": {k: v["lpg"] for k, v in resume_launches.items()},
+         "bench_launches": {k: v["lpg"] for k, v in bench_launches.items()}},
         {"name": "lpg_backward", "route": "cuda", "source": LPG_SOURCE,
          "replaces": LPG_BWD_REPLACES, "grad_dtype": "bfloat16",
          "launches": train_path["lpg_backward"], "launches_per_step": 3,
@@ -2570,7 +2808,9 @@ def main():
                          if v["lpg_backward"]},
          "dp_launches": {k: v["lpg_backward"] for k, v in dp_launches.items()
                          if v["lpg_backward"]},
-         "resume_launches": {k: v["lpg_backward"] for k, v in resume_launches.items()}},
+         "resume_launches": {k: v["lpg_backward"] for k, v in resume_launches.items()},
+         "bench_launches": {k: v["lpg_backward"] for k, v in bench_launches.items()
+                            if v["lpg_backward"]}},
         dense_record("taps", "bfloat16", serving, forwards),
         dense_record("taps", "float32", f32_path["taps"], 1),
         dense_record("eo", "bfloat16", eo_path, 1),

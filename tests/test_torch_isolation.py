@@ -86,6 +86,11 @@ SLICE_MODULES = [
     "bts_tpu_torch.tools.profile_train",
     "bts_tpu_torch.tools.reproduce_reference",
     "bts_tpu_torch.tools.dryrun_multichip",
+    "bts_tpu_torch.tools.benchtools",
+    "bts_tpu_torch.tools.bench",
+    "bts_tpu_torch.tools.bench_train",
+    "bts_tpu_torch.tools.bench_zoo",
+    "bts_tpu_torch.tools.bench_lpg",
     "bts_tpu_torch.parallel",
     "bts_tpu_torch.parallel.mesh",
     "bts_tpu_torch.parallel.sync_bn",
