@@ -97,7 +97,8 @@ class Config:
 
     # Additions of bts_tpu (no reference equivalent); kept so its args
     # files parse. The port reads all but the TPU layout options
-    # mesh_axis_name, fast_tail, remat, remat_policy and remat_scope.
+    # mesh_axis_name and fast_tail. remat, remat_policy and remat_scope
+    # rematerialise as bts_tpu does (models/remat.py).
     # async_checkpoint writes checkpoints on a background thread from
     # pinned host copies (training/checkpoint.py, CheckpointWriter).
     num_devices: int = 0

@@ -17,6 +17,7 @@ from torch import nn
 from bts_tpu_torch.models.decoder import BTSDecoder
 from bts_tpu_torch.models.encoders import densenet, mobilenet, resnet
 from bts_tpu_torch.models.layers import TF_BN_EPS
+from bts_tpu_torch.models.remat import POLICIES, SCOPES, checkpointed, records_grad
 
 # name -> (factory, feat_out_channels), as bts_tpu's (pytorch/bts.py:273-301).
 ENCODERS = {
@@ -43,7 +44,14 @@ class BTSModel(nn.Module):
     ``flavor="tf"`` builds the reference's TF graph (tensorflow/bts.py), the
     graph of the TF zoo's checkpoints, for a DenseNet encoder only (the TF
     zoo's): encoder BN eps 1.1e-5 and slim's SAME stem, and the decoder's TF
-    form (``decoder.py``)."""
+    form (``decoder.py``).
+
+    ``remat`` trades compute for memory in a forward that autograd records,
+    as ``bts_tpu``'s: the encoder is a checkpoint region that saves only its
+    convolutions' outputs (``remat_policy`` ``conv``) or nothing (``full``),
+    and under ``remat_scope`` ``all`` the decoder is a second region that
+    saves nothing (``models/remat.py``). Under no_grad or inference_mode it
+    changes nothing."""
 
     def __init__(
         self,
@@ -53,8 +61,16 @@ class BTSModel(nn.Module):
         bts_size: int = 512,
         lpg_impl: str = "auto",
         flavor: str = "pt",
+        remat: bool = False,
+        remat_policy: str = "conv",
+        remat_scope: str = "encoder",
     ):
         super().__init__()
+        if remat_policy not in POLICIES or remat_scope not in SCOPES:
+            raise ValueError(f"remat_policy must be one of {'/'.join(POLICIES)} and remat_scope "
+                             f"one of {'/'.join(SCOPES)} (got {remat_policy!r}, "
+                             f"{remat_scope!r})")
+        self.remat, self.remat_policy, self.remat_scope = remat, remat_policy, remat_scope
         factory, feat_out_channels = ENCODERS[encoder_name]
         kw = {}
         if flavor == "tf":
@@ -70,7 +86,12 @@ class BTSModel(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, focal: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        return self.decoder(self.encoder(x), focal)
+        if not (self.remat and records_grad(self)):
+            return self.decoder(self.encoder(x), focal)
+        skips = checkpointed(self.encoder, x, save_convolutions=self.remat_policy == "conv")
+        if self.remat_scope == "all":
+            return checkpointed(self.decoder, skips, focal)
+        return self.decoder(skips, focal)
 
 
 @torch.no_grad()
@@ -100,7 +121,8 @@ def check_encoder(name: str) -> None:
 
 def create_model(cfg) -> BTSModel:
     """Build a BTSModel from a Config on the CPU, its weights seeded from
-    ``cfg.seed``, in the graph of ``cfg.resolved_flavor``."""
+    ``cfg.seed``, in the graph of ``cfg.resolved_flavor``, rematerialising
+    as ``cfg.remat``, ``remat_policy`` and ``remat_scope`` say."""
     check_encoder(cfg.encoder)
     if cfg.bts_size < 128:
         raise ValueError(
@@ -114,5 +136,8 @@ def create_model(cfg) -> BTSModel:
         bts_size=cfg.bts_size,
         lpg_impl=cfg.lpg_impl,
         flavor=cfg.resolved_flavor,
+        remat=cfg.remat,
+        remat_policy=cfg.remat_policy,
+        remat_scope=cfg.remat_scope,
     )
     return init_weights(model, torch.Generator().manual_seed(cfg.seed))

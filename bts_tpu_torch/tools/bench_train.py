@@ -16,10 +16,13 @@ then ``{"metric": "train_step_<encoder>_<h>x<w>_b<batch>", "value", "unit":
 ``vs_baseline`` divides by 106 ex/s measured on a TPU v5e chip; no number of
 this card takes its place, so the line has none.
 
-``--no_fast_tail``, ``--remat``, ``--remat_policy`` and ``--remat_scope``
-name TPU rewrites of ``bts_tpu`` that the port does not build: they parse
-and are ignored. ``--profile_dir DIR`` traces the timed steps into
-``DIR/trace.json``. On the card unless ``--device cpu``.
+``--remat`` rematerialises as ``cli.train`` does (``models/remat.py``):
+the encoder keeps only its convolutions' outputs (``--remat_policy conv``,
+the default) or nothing (``full``), and ``--remat_scope all`` also
+recomputes the decoder. ``--no_fast_tail`` names a TPU rewrite of
+``bts_tpu`` that the port does not build: it parses and is ignored.
+``--profile_dir DIR`` traces the timed steps into ``DIR/trace.json``. On the
+card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -53,10 +56,12 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--raw_width", type=int, default=640)
     ap.add_argument("--no_device_augment", action="store_true")
     ap.add_argument("--no_fast_tail", action="store_true", help=IGNORED)
-    ap.add_argument("--remat", action="store_true", help=IGNORED)
-    ap.add_argument("--remat_policy", default="conv", choices=["conv", "full"], help=IGNORED)
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute activations in the backward to save memory")
+    ap.add_argument("--remat_policy", default="conv", choices=["conv", "full"],
+                    help="under --remat, save the encoder's conv outputs, or nothing")
     ap.add_argument("--remat_scope", default="encoder", choices=["encoder", "all"],
-                    help=IGNORED)
+                    help="under --remat, recompute the encoder, or the decoder too")
     ap.add_argument("--profile_dir", default="")
     ap.add_argument("--delay", type=int, default=3,
                     help="readback delay in steps (pipeline depth)")

@@ -9,9 +9,11 @@ default) or float32 (TF32 off). At each batch: 3 warm-up steps, then
 per step and its split by kind of kernel, and the host time spent in each of
 the step's ranges (``train_step/augment``, ``/forward``, ``/backward``,
 ``/optimizer``); the wall time per step comes from 10 steps without the
-profiler, host clock around work that ends in a synchronise. Idle is
-1 - device time / wall time. Prints one JSON line per batch and writes them
-to ``--out`` (``build/profile_train.json`` by default). Needs a CUDA card.
+profiler, host clock around work that ends in a synchronise, and the peak
+memory they allocate. Idle is 1 - device time / wall time. ``--remat``,
+``--remat_policy`` and ``--remat_scope`` rematerialise as ``cli.train``
+does. Prints one JSON line per batch and writes them to ``--out``
+(``build/profile_train.json`` by default). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def top_kernels(prof, steps: int, n: int = 12) -> dict:
     return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
 
 
-def profile_step(batch: int, bf16: bool, steps: int = 3, timed: int = 10) -> dict:
+def profile_step(batch: int, bf16: bool, steps: int = 3, timed: int = 10, **remat) -> dict:
     from bts_tpu_torch.config import Config
     from bts_tpu_torch.models.bts import create_model
     from bts_tpu_torch.training.optim import create_optimizer
@@ -48,7 +50,7 @@ def profile_step(batch: int, bf16: bool, steps: int = 3, timed: int = 10) -> dic
     cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512,
                  learning_rate=1e-4, weight_decay=1e-2, adam_eps=1e-3, batch_size=batch,
                  input_height=416, input_width=544, device_augment=True,
-                 compute_dtype="bfloat16" if bf16 else "float32")
+                 compute_dtype="bfloat16" if bf16 else "float32", **remat)
     model = create_model(cfg).cuda()
     optimizer, _ = create_optimizer(cfg, model, 1000)
     state = TrainState(model, optimizer)
@@ -65,11 +67,13 @@ def profile_step(batch: int, bf16: bool, steps: int = 3, timed: int = 10) -> dic
         for _ in range(steps):
             step(state, dev)
         torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(timed):
         step(state, dev)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / timed
+    peak_bytes = torch.cuda.max_memory_allocated()
 
     kernels, device_us, by_kind, host_us = 0, 0.0, {}, {}
     for e in prof.events():
@@ -92,7 +96,9 @@ def profile_step(batch: int, bf16: bool, steps: int = 3, timed: int = 10) -> dic
     device_ms = device_us / 1e3 / steps
     return {
         "batch": batch, "dtype": cfg.compute_dtype, "kernels": kernels // steps,
+        "remat": (f"{cfg.remat_policy}/{cfg.remat_scope}" if cfg.remat else "off"),
         "device_ms": device_ms, "wall_ms": wall_ms, "idle": 1.0 - device_ms / wall_ms,
+        "peak_bytes": peak_bytes,
         "img_per_s": batch / wall_ms * 1e3, "host_ms_by_range": host_ms,
         "top_kernels_ms": top_kernels(prof, steps),
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
@@ -103,6 +109,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, nargs="+", default=[4, 16])
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute activations in the backward to save memory")
+    parser.add_argument("--remat_policy", default="conv", choices=("conv", "full"))
+    parser.add_argument("--remat_scope", default="encoder", choices=("encoder", "all"))
     parser.add_argument("--out", default=os.path.join("build", "profile_train.json"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -115,7 +125,8 @@ def main(argv=None):
     print(smi, flush=True)
     runs = []
     for b in args.batches:
-        run = profile_step(b, bf16)
+        run = profile_step(b, bf16, remat=args.remat, remat_policy=args.remat_policy,
+                           remat_scope=args.remat_scope)
         run["device"] = smi
         runs.append(run)
         print(json.dumps(run), flush=True)

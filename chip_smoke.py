@@ -212,8 +212,34 @@ Phases, in order; any failure raises and the script exits nonzero:
        block buffers' strided views that forward filled (DENSE_TOL), the LPG
        forward bit for bit and its backward within LPG_BWD_TOL on
        ``bench_lpg``'s B=16 planes and at ``bench_train``'s batch-16 sites,
-       and the LPG forward at ``bench``'s batch-128 sites.
-Each phase's seconds are printed as it ends, and as JSON after phase 13.
+       and the LPG forward at ``bench``'s batch-128 sites;
+14. rematerialisation (``--remat``, ``--remat_policy``, ``--remat_scope``;
+    ``models/remat.py``), each setting's model from ``create_model``, each
+    path's counts reset just before it and read just after:
+   (b) one f32 step (TF32 off, deterministic cuDNN) on 7(b)'s 2x416x544
+       batch for each setting (conv/encoder, full/encoder, conv/all,
+       full/all) against the step without remat from the same seeded state:
+       bit-equal or not, and held to ``REMAT_TOL`` (loss rtol 1e-4, every
+       parameter and BN statistic atol 1e-4, every ``num_batches_tracked``
+       equal);
+   (a) ``bench_train``'s bf16 step (416x544 from 480x640, its Config and
+       host batches) at batches 8 and 16 for no remat and the four
+       settings: ``max_memory_allocated`` over 3 steps after a warm-up,
+       wall ms a step, and the launches: 3 LPG backward a step, 3 LPG
+       forward, 6 under scope ``all`` (the decoder's recompute calls the
+       kernel again); the bytes an image as the slope between the batches;
+   (c) the smallest multiple of 16 at which the step without remat,
+       extrapolated, exceeds the card's memory: one step there under
+       conv/all (its own extrapolation must fit) and conv/encoder if its
+       extrapolation fits, each peak printed; no step without remat there;
+       then a ``cli.test`` forward (``apps/predict.py``) of a model built
+       with ``--remat --remat_scope all``: 78 taps and 3 LPG launches;
+   (d) two gloo ranks sharing the card (11(a)'s harness and batch) take one
+       f32 step with conv/all against one process, deterministic cuDNN,
+       at ``DP_TOL``, the ranks' states equal, the global BN's buffers'
+       largest difference printed; the ranks start first and run beside
+       (b), which times nothing.
+Each phase's seconds are printed as it ends, and as JSON after phase 14.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
@@ -223,7 +249,7 @@ and the launch floor; both LPG records carry phase 9's counts by path, and
 they and the taps records phase 10's under ``tf_launches`` and phase 11's
 under ``dp_launches``; both LPG records phase 12's under
 ``resume_launches``; both LPG records and the bf16 taps record phase 13's
-under ``bench_launches``;
+under ``bench_launches``; both LPG records phase 14's under ``remat_launches``;
 ``ms``/``plain_ms`` summed over the phase-3 shapes or sites at B=8, in the
 record's dtype, the dense kernels' ``b1`` at B=1; eo's ``bound_ms`` counts
 its own work, ``layer_bound_ms`` the taps form's); the last line is
@@ -1171,7 +1197,8 @@ def dp_f32_rank(path, cfg, dp):
     step), one f32 step (TF32 off, deterministic cuDNN, so that the result
     repeats from call to call) through ``make_train_step(cfg, dp)`` on the
     rank's share of the global batch: its loss, its state's largest
-    difference from the single-process step's, a digest and the launches."""
+    difference from the single-process step's (and its BN buffers'), a
+    digest and the launches."""
     import torch
 
     from bts_tpu_torch.models.bts import create_model
@@ -1194,8 +1221,11 @@ def dp_f32_rank(path, cfg, dp):
         reset_kernel_counts()
         loss = float(make_train_step(run["cfg"], dp)(st, local))
         after = model.state_dict()
+        bn = [k for k in after if "running_" in k or k.endswith("num_batches_tracked")]
         out[name] = {"loss": loss, "launches": kernel_counts(),
-                     "diff": state_diff(after, run["want"]), "digest": state_digest(after)}
+                     "diff": state_diff(after, run["want"]), "digest": state_digest(after),
+                     "bn_diff": state_diff({k: after[k] for k in bn},
+                                           {k: run["want"][k] for k in bn})}
         del model, optimizer, st
     return out
 
@@ -1963,6 +1993,280 @@ def phase13(torch, counts, reset_counts, smi):
                       "device": smi}))
     return launches
 
+
+# Phase 14: rematerialisation (--remat, --remat_policy, --remat_scope) in the
+# train step. Each setting by its name; "off" is the step without remat.
+REMAT_SETTINGS = {"off": {}, **{f"{p}/{s}": {"remat": True, "remat_policy": p, "remat_scope": s}
+                                for p, s in (("conv", "encoder"), ("full", "encoder"),
+                                             ("conv", "all"), ("full", "all"))}}
+REMAT_BATCHES = (8, 16)
+REMAT_TIMED_STEPS = 3
+REMAT_TOL = DP_TOL  # phase 7(b)'s: loss rtol 1e-4, state atol 1e-4
+REMAT_BIG = "conv/all"  # --remat --remat_scope all, the default policy
+
+
+def remat_flags(setting):
+    """A setting as bench_train's flags."""
+    if not setting:
+        return []
+    return ["--remat", "--remat_policy", setting["remat_policy"], "--remat_scope",
+            setting["remat_scope"]]
+
+
+def remat_launches(setting, steps=1):
+    """The kernel launches of ``steps`` train steps: 3 LPG forward and 3 LPG
+    backward each, and 3 LPG forward more under scope ``all``, where the
+    decoder's recompute calls the forward kernel again
+    (tests/test_torch_remat.py counts the same calls on the CPU)."""
+    again = 3 if setting.get("remat_scope") == "all" else 0
+    return {"taps": 0, "eo": 0, "lpg": (3 + again) * steps, "lpg_backward": 3 * steps}
+
+
+def remat_steps(torch, bench_train, create_optimizer, TrainState, make_train_step, model,
+                batch, setting, batches, counts, reset_counts, steps=REMAT_TIMED_STEPS):
+    """bench_train's bf16 step (its Config) at ``batch`` on ``model`` over
+    ``batches`` (its host batches on the card), with a fresh optimizer: one
+    warm-up step, then ``steps`` steps with the peak memory reset and the
+    counts reset just before and read just after. Returns (peak bytes, ms a
+    step, launches)."""
+    cfg = bench_train.bench_config(bench_train.parse(["--batch", str(batch),
+                                                      *remat_flags(setting)]))
+    optimizer, _ = create_optimizer(cfg, model, 10_000)
+    state, step = TrainState(model, optimizer), make_train_step(cfg)
+    step(state, batches[-1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launched, peak = counts(), torch.cuda.max_memory_allocated()
+    model.zero_grad(set_to_none=True)
+    if not torch.isfinite(loss):
+        raise RuntimeError(f"remat {setting} batch {batch}: loss {loss.item()}")
+    want = remat_launches(setting, steps)
+    if launched != want:
+        raise RuntimeError(f"remat {setting} batch {batch}: kernel launches {launched}, "
+                           f"expected {want}")
+    return peak, ms, launched
+
+
+def bench_train_batches(torch, bench_train, batch, n=2):
+    """The first ``n`` of bench_train's host batches at ``batch``, on the card."""
+    from bts_tpu_torch.training.state import to_device
+
+    args = bench_train.parse(["--batch", str(batch)])
+    return [to_device(b, torch.device("cuda")) for b in bench_train.host_batches(args)[:n]]
+
+
+def phase14(torch, Config, create_model, create_optimizer, TrainState, make_train_step, counts,
+            reset_counts, smi):
+    """Phase 14, rematerialisation (``models/remat.py``). Returns the kernel
+    launches of each of its paths, by path."""
+    import concurrent.futures
+    import functools
+
+    from bts_tpu_torch.apps import predict
+    from bts_tpu_torch.parallel import launch
+    from bts_tpu_torch.tools import bench_train
+
+    launches, models, rows = {}, {}, {}
+    total = torch.cuda.get_device_properties(0).total_memory
+    GB = 1e9
+    torch.cuda.empty_cache()
+    tcfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=MAX_DEPTH, bts_size=512,
+                  learning_rate=1e-4, weight_decay=1e-2, adam_eps=1e-3, batch_size=2,
+                  input_height=416, input_width=544)
+    gen = torch.Generator().manual_seed(14)
+
+    # (d), started first: the ranks' start-up overlaps (b). One process's
+    # f32 step with conv/all on 11(a)'s global batch (deterministic cuDNN),
+    # then two gloo ranks sharing the card take it from the same state.
+    dcfg = tcfg.replace(batch_size=DP_BATCH, device_augment=True, **REMAT_SETTINGS[REMAT_BIG])
+    host = {"image": torch.rand(DP_BATCH, 427, 565, 3, generator=gen),
+            "depth": torch.rand(DP_BATCH, 427, 565, 1, generator=gen) * 9.5 + 0.05,
+            "focal": torch.full((DP_BATCH,), 518.8579)}
+    model = create_model(dcfg)
+    seeded = {k: v.clone() for k, v in model.state_dict().items()}
+    model.cuda()
+    optimizer, _ = create_optimizer(dcfg, model, 1000)
+    torch.backends.cudnn.deterministic = True
+    try:
+        single_loss = float(make_train_step(dcfg)(TrainState(model, optimizer),
+                                                  {k: v.cuda() for k, v in host.items()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    single = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model, optimizer
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    path = os.path.join(tmp, "d.pt")
+    torch.save({"batch": host, "runs": {REMAT_BIG: {"cfg": dcfg, "state": seeded,
+                                                    "want": single}}}, path)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    t0 = time.perf_counter()
+    ranks_future = pool.submit(launch.spawn, functools.partial(dp_f32_rank, path), dcfg,
+                               DP_RANKS, devices=["cuda:0"] * DP_RANKS, backend="gloo")
+    try:
+        # (b) On each setting's fresh seeded model: one f32 step (TF32 off,
+        # deterministic cuDNN) on 7(b)'s 2x416x544 batch, held to the step
+        # without remat. (a) then steps the same models in bf16.
+        dev = {"image": torch.randn(2, 416, 544, 3, generator=gen).cuda(),
+               "depth": (torch.rand(2, 416, 544, 1, generator=gen) * 9.5 + 0.05).cuda(),
+               "focal": torch.full((2,), 518.8579, device="cuda")}
+        equal = {}
+        for name, setting in REMAT_SETTINGS.items():
+            cfg = tcfg.replace(**setting)
+            model = models[name] = create_model(cfg).cuda()
+            if (model.remat, model.remat_policy, model.remat_scope) != (
+                    cfg.remat, cfg.remat_policy, cfg.remat_scope):
+                raise RuntimeError(f"{name}: create_model dropped the remat fields")
+            optimizer, _ = create_optimizer(cfg, model, 1000)
+            torch.backends.cudnn.deterministic = True
+            try:
+                reset_counts()
+                loss = float(make_train_step(cfg)(TrainState(model, optimizer), dev))
+                launched = counts()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            if launched != remat_launches(setting):
+                raise RuntimeError(f"{name} f32 step: kernel launches {launched}")
+            launches[f"14b {name}: 1 f32 step"] = launched
+            after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            del optimizer
+            model.zero_grad(set_to_none=True)
+            if name == "off":
+                want_loss, want = loss, after
+                continue
+            worst = state_diff(after, want)  # raises unless every num_batches_tracked is equal
+            bit = loss == want_loss and all(torch.equal(after[k], v) for k, v in want.items())
+            if abs(loss - want_loss) > REMAT_TOL["rtol"] * abs(want_loss) or \
+                    worst[0] > REMAT_TOL["atol"]:
+                raise RuntimeError(f"{name} f32 step: loss {loss!r} against {want_loss!r} "
+                                   f"without remat, largest state difference {worst}")
+            equal[name] = {"loss": loss, "off_loss": want_loss, "bit_equal": bit,
+                           "state_diff": worst}
+            print(f"(b) {name}: f32 step against the step without remat (2x416x544, "
+                  f"deterministic cuDNN): loss {loss!r} against {want_loss!r}; parameters and "
+                  f"BN buffers {'bit-equal' if bit else f'largest difference {worst!r}'}; every "
+                  f"num_batches_tracked equal; launches {launched}", flush=True)
+        del dev
+        ranks = ranks_future.result()
+        spawn_s = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = [out[REMAT_BIG] for out in ranks]
+    for r, g in enumerate(got):
+        if abs(g["loss"] - single_loss) > DP_TOL["rtol"] * abs(single_loss) or \
+                g["diff"][0] > DP_TOL["atol"] or g["launches"] != remat_launches(
+                    REMAT_SETTINGS[REMAT_BIG]):
+            raise RuntimeError(f"(d) rank {r}: loss {g['loss']!r} against one process's "
+                               f"{single_loss!r}, state difference {g['diff']}, launches "
+                               f"{g['launches']}")
+    if len({g["digest"] for g in got}) != 1:
+        raise RuntimeError("(d) the two ranks' states differ after the step")
+    launches[f"14d gloo rank 0: 1 f32 step, {REMAT_BIG}"] = got[0]["launches"]
+    two_ranks = {"loss": [g["loss"] for g in got], "single_loss": single_loss,
+                 "state_diff": [g["diff"] for g in got], "bn_diff": [g["bn_diff"] for g in got],
+                 "spawn_s": spawn_s}
+    print(f"(d) {REMAT_BIG}: a global batch of {DP_BATCH} on {DP_RANKS} gloo ranks sharing "
+          f"cuda:0, one f32 step against one process: loss {two_ranks['loss']!r} against "
+          f"{single_loss!r}; largest state difference {two_ranks['state_diff']!r}, of the "
+          f"global BN's buffers {two_ranks['bn_diff']!r} (atol {DP_TOL['atol']}); the ranks' "
+          f"states equal; launches a rank {got[0]['launches']}; {spawn_s:.1f} s (beside (b))",
+          flush=True)
+
+    # (a) bench_train's bf16 step at batches 8 and 16: peak bytes, ms, launches.
+    for batch in REMAT_BATCHES:
+        batches = bench_train_batches(torch, bench_train, batch)
+        for name, setting in REMAT_SETTINGS.items():
+            peak, ms, launched = remat_steps(
+                torch, bench_train, create_optimizer, TrainState, make_train_step, models[name],
+                batch, setting, batches, counts, reset_counts)
+            rows[name, batch] = {"peak_bytes": peak, "ms": ms,
+                                 "lpg_forward_a_step": launched["lpg"] // REMAT_TIMED_STEPS,
+                                 "lpg_backward_a_step":
+                                     launched["lpg_backward"] // REMAT_TIMED_STEPS}
+            launches[f"14a {name} b{batch}: {REMAT_TIMED_STEPS} bf16 steps"] = launched
+        del batches
+        torch.cuda.empty_cache()
+    b0, b1 = REMAT_BATCHES
+    slope = {name: (rows[name, b1]["peak_bytes"] - rows[name, b0]["peak_bytes"]) / (b1 - b0)
+             for name in REMAT_SETTINGS}
+
+    def extrapolated(name, batch):
+        return rows[name, b1]["peak_bytes"] + slope[name] * (batch - b1)
+
+    for name in REMAT_SETTINGS:
+        print(f"(a) {name}: bf16 step 416x544 (bench_train's), peak "
+              + ", ".join(f"{rows[name, b]['peak_bytes'] / GB:.3f} GB and "
+                          f"{rows[name, b]['ms']:.2f} ms a step at batch {b}"
+                          for b in REMAT_BATCHES)
+              + f"; {slope[name] / GB:.4f} GB an image; LPG forward "
+              f"{rows[name, b1]['lpg_forward_a_step']}, backward "
+              f"{rows[name, b1]['lpg_backward_a_step']} a step", flush=True)
+
+    # (c) The smallest multiple of 16 whose no-remat peak, extrapolated,
+    # exceeds the card: one step there under --remat --remat_scope all, and
+    # conv/encoder too if its own extrapolation fits. No step without remat.
+    big = 16
+    while extrapolated("off", big) <= total:
+        big += 16
+    large = {"batch": big, "total_bytes": total,
+             "off_extrapolated_bytes": extrapolated("off", big)}
+    batches = bench_train_batches(torch, bench_train, big, n=1)
+    for name in (REMAT_BIG, "conv/encoder"):
+        large[name] = {"extrapolated_bytes": extrapolated(name, big)}
+        if extrapolated(name, big) > total:
+            if name == REMAT_BIG:
+                raise RuntimeError(f"(c) {name} at batch {big}: extrapolated peak "
+                                   f"{extrapolated(name, big) / GB:.2f} GB exceeds the card's "
+                                   f"{total / GB:.2f} GB")
+            print(f"(c) {name} at batch {big}: extrapolated peak "
+                  f"{extrapolated(name, big) / GB:.2f} GB exceeds the card's {total / GB:.2f} "
+                  "GB: not run", flush=True)
+            continue
+        peak, ms, launched = remat_steps(
+            torch, bench_train, create_optimizer, TrainState, make_train_step, models[name],
+            big, REMAT_SETTINGS[name], batches, counts, reset_counts, steps=1)
+        large[name].update(peak_bytes=peak, ms=ms)
+        launches[f"14c {name} b{big}: 1 bf16 step"] = launched
+        torch.cuda.empty_cache()
+        print(f"(c) {name} at batch {big} (without remat about "
+              f"{extrapolated('off', big) / GB:.2f} GB, over the card's {total / GB:.2f} GB): "
+              f"peak {peak / GB:.3f} GB (extrapolated {extrapolated(name, big) / GB:.2f}), "
+              f"{ms:.1f} ms; launches {launched}", flush=True)
+    del batches
+    models.clear()
+    torch.cuda.empty_cache()
+
+    # A cli.test forward (apps/predict.py) of a model built with --remat
+    # --remat_scope all stays the serving path.
+    icfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=MAX_DEPTH, bts_size=512,
+                  remat=True, remat_scope="all")
+    model = predict.load_model(icfg, torch.device("cuda"))
+    x = torch.randn(1, 3, 480, 640, generator=gen).cuda()
+    reset_counts()
+    with torch.inference_mode(), predict.compute_context(icfg, torch.device("cuda")):
+        outs = predict.forward_padded(model, x, torch.full((1,), 518.8579, device="cuda"))
+    torch.cuda.synchronize()
+    launched = counts()
+    want = {"taps": DENSE_LAYERS, "eo": 0, "lpg": 3, "lpg_backward": 0}
+    if launched != want or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise RuntimeError(f"cli.test forward with --remat: launches {launched}, expected {want}")
+    launches["14 cli.test forward, remat=True"] = launched
+    print(f"cli.test forward (f32, 480x640) of a model built with --remat --remat_scope all: "
+          f"launches {launched}", flush=True)
+    del model, outs
+    torch.cuda.empty_cache()
+    print(json.dumps({"remat": {
+        "steps": {f"{name} b{b}": r for (name, b), r in rows.items()},
+        "bytes_an_image": slope, "large_batch": large, "equal": equal,
+        "two_ranks": two_ranks, "launches": launches, "device": smi}}))
+    return launches
 
 def main():
     import torch
@@ -2743,6 +3047,10 @@ def main():
 
     phase("13 the benchmark tools: bench, bench --lpg-check, bench_train, bench_zoo, bench_lpg")
     bench_launches = phase13(torch, counts, reset_counts, smi)
+
+    phase("14 rematerialisation: memory and time, equality, the large batch, two ranks")
+    remat_launches = phase14(torch, Config, create_model, create_optimizer, TrainState,
+                             make_train_step, counts, reset_counts, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -2796,7 +3104,8 @@ def main():
          "tf_launches": {k: v["lpg"] for k, v in tf_launches.items()},
          "dp_launches": {k: v["lpg"] for k, v in dp_launches.items()},
          "resume_launches": {k: v["lpg"] for k, v in resume_launches.items()},
-         "bench_launches": {k: v["lpg"] for k, v in bench_launches.items()}},
+         "bench_launches": {k: v["lpg"] for k, v in bench_launches.items()},
+         "remat_launches": {k: v["lpg"] for k, v in remat_launches.items()}},
         {"name": "lpg_backward", "route": "cuda", "source": LPG_SOURCE,
          "replaces": LPG_BWD_REPLACES, "grad_dtype": "bfloat16",
          "launches": train_path["lpg_backward"], "launches_per_step": 3,
@@ -2810,6 +3119,8 @@ def main():
                          if v["lpg_backward"]},
          "resume_launches": {k: v["lpg_backward"] for k, v in resume_launches.items()},
          "bench_launches": {k: v["lpg_backward"] for k, v in bench_launches.items()
+                            if v["lpg_backward"]},
+         "remat_launches": {k: v["lpg_backward"] for k, v in remat_launches.items()
                             if v["lpg_backward"]}},
         dense_record("taps", "bfloat16", serving, forwards),
         dense_record("taps", "float32", f32_path["taps"], 1),

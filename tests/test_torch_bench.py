@@ -163,7 +163,8 @@ def test_images_are_the_scripts_draws(monkeypatch):
 ])
 def test_bench_train_config_and_batches_are_the_scripts(monkeypatch, flags):
     """scripts/bench_train.py's Config, field for field, and its two host
-    batches, read where it shards them, at a small size."""
+    batches, read where it shards them, at a small size; with --remat the
+    tool's Config and model carry the three remat values."""
     import bts_tpu.config as jconfig
     import bts_tpu.models.bts as jmodels
     import bts_tpu.parallel.mesh as jmesh
@@ -197,7 +198,12 @@ def test_bench_train_config_and_batches_are_the_scripts(monkeypatch, flags):
         load_script("scripts/bench_train.py").main()
 
     args = bench_train.parse([*small, *flags])
-    assert bench_train.bench_config(args) == Config(**built[0])
+    cfg = bench_train.bench_config(args)
+    assert cfg == Config(**built[0])
+    if "--remat" in flags:
+        model = bts.create_model(cfg)
+        assert (cfg.remat, cfg.remat_policy, cfg.remat_scope) == (True, "full", "all")
+        assert (model.remat, model.remat_policy, model.remat_scope) == (True, "full", "all")
     ours = bench_train.host_batches(args)
     for want, got in zip(batches, ours, strict=True):
         assert set(got) == set(want)

@@ -46,6 +46,7 @@ SLICE_MODULES = [
     "bts_tpu_torch.utils.colorize",
     "bts_tpu_torch.models",
     "bts_tpu_torch.models.layers",
+    "bts_tpu_torch.models.remat",
     "bts_tpu_torch.models.encoders.densenet",
     "bts_tpu_torch.models.encoders.resnet",
     "bts_tpu_torch.models.encoders.mobilenet",

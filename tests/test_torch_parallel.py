@@ -77,6 +77,8 @@ def job(tmp_path_factory):
         "train": {m: (Config(**_train_kw(f, device_augment=True)), sd, batches)
                   for m, f in MODES.items()},
         "eval": (ecfg, sd),
+        "remat": (Config(**_train_kw(False, device_augment=True, remat=True,
+                                     remat_policy="conv", remat_scope="all")), sd, batches),
         "serve": {"image": rng.normal(size=(2, 3, H, W)).astype(np.float32),
                   "focal": np.full(2, FOCAL, np.float32)},
     }
@@ -176,6 +178,23 @@ def test_two_rank_step_is_the_global_batch_step(tiny_encoder, job, mode):
                                        atol=1e-5, err_msg=n)
     moved = [n for n in sd if n.endswith("running_mean") and not torch.equal(r0["state"][n], sd[n])]
     assert bool(moved) == (mode == "bn_train")
+
+
+def test_two_rank_remat_step_equals_two_rank_step(job):
+    """The two ranks' steps with --remat --remat_scope all (policy conv)
+    against their steps without, bit for bit: the losses, step 1's
+    gradients, every parameter and BN buffer after the two steps. The
+    recompute replays the global BN's all-reduces inside the backward, in the
+    same order on both ranks, and gets the forward's statistics back; it
+    leaves the running statistics as the forward left them."""
+    for r in job["results"]:
+        got, want = r["remat"], r["bn_train"]
+        assert got["losses"] == want["losses"]
+        assert got["grads"].keys() == want["grads"].keys()
+        for n, g in want["grads"].items():
+            assert torch.equal(got["grads"][n], g), n
+        for n, v in want["state"].items():
+            assert torch.equal(got["state"][n], v), n
 
 
 def test_wrap_broadcasts_rank_0s_parameters_and_buffers(job):

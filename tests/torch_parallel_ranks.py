@@ -54,6 +54,8 @@ def parallel_job(path, cfg, dp):
     for mode, (mcfg, sd, batches) in inputs["train"].items():
         losses, grads, after, models[mode] = train_steps(mcfg, sd, batches, dp)
         out[mode] = {"losses": losses, "grads": grads, "state": after}
+    losses, grads, after, _ = train_steps(*inputs["remat"], dp)
+    out["remat"] = {"losses": losses, "grads": grads, "state": after}
     # The trained model's BN are global now; a replica of it serves alone.
     x = torch.from_numpy(inputs["serve"]["image"])
     f = torch.from_numpy(inputs["serve"]["focal"])
