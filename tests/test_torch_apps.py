@@ -25,6 +25,7 @@ from bts_tpu_torch.config import Config
 from bts_tpu_torch.models import bts
 
 from test_torch_model import tiny_encoder  # noqa: F401  (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_zoo_helpers import model_variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -31,6 +31,7 @@ from bts_tpu_torch.models.convert import state_dict_from_flax
 from bts_tpu_torch.tools import bench, bench_lpg, bench_train, bench_zoo, benchtools
 
 from test_torch_model import TINY, TINY_CHANNELS, tiny_jax, tiny_torch
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W = 64, 96

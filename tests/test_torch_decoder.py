@@ -11,6 +11,8 @@ from bts_tpu.models.decoder import BTSDecoder as JaxDecoder
 from bts_tpu_torch.models.convert import state_dict_from_flax
 from bts_tpu_torch.models.decoder import BTSDecoder
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 H, W = 64, 96
 FEAT = [64, 64, 128, 256, 1024]  # densenet121 widths
 

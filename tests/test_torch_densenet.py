@@ -12,6 +12,7 @@ from bts_tpu_torch.models.convert import state_dict_from_flax
 from bts_tpu_torch.models.encoders import densenet
 
 from test_torch_decoder import randomize_bn
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 TINY = ((2, 2, 2, 2), 8, 16)  # block_config, growth_rate, num_init_features
 

@@ -16,6 +16,7 @@ from bts_tpu_torch.models import bts
 from bts_tpu_torch.models.convert import state_dict_from_flax, torch_key
 from bts_tpu_torch.models.encoders import mobilenet
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_zoo_helpers import H, TINY_RESNETS, W, jax_tiny_resnet, seeded_variables
 from torch_zoo_helpers import torch_tiny_resnet
 

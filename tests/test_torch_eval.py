@@ -24,6 +24,8 @@ from bts_tpu_torch.evaluation.metrics import (
 )
 from bts_tpu_torch.evaluation.protocol import clamp_prediction, eval_mask, kb_crop_reembed
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 
 def test_compute_errors_golden():
     """Hand-computed values on a tiny vector (test_loss_metrics.py's)."""

@@ -31,20 +31,11 @@ from bts_tpu_torch.training import checkpoint, state
 from bts_tpu_torch.training.loop import train
 
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W, tiny_variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the test workers share the machine's cores, and
-    PyTorch's default of a thread per core oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _write_nyu(root, sizes, seed=5):
@@ -345,10 +336,9 @@ def test_cli_eval_runs_the_run_dirs_snapshot(tmp_path):
     with open(os.path.join(run_dir, "bts_tpu_torch", "evaluation", "offline.py"), "a") as f:
         f.write('\nprint("offline eval from the snapshot")\n')
     _save_pth(os.path.join(run_dir, "model-4"), bts.create_model(cfg), 4)
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-m", "bts_tpu_torch.cli.eval", "--device", "cpu",
                           *[f"--{k}={v}" for k, v in kw.items()]], cwd=ROOT, capture_output=True,
-                         text=True, timeout=600, env=env)
+                         text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert f"Using model snapshot from {run_dir}" in out.stdout
     assert "offline eval from the snapshot" in out.stdout

@@ -26,6 +26,7 @@ from bts_tpu_torch.training import checkpoint, optim, state
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
 from test_torch_tf_flavor import randomize
 from test_torch_tf_train import TINY_TF, _register
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -14,6 +14,8 @@ from torch import nn
 from bts_tpu_torch.models.encoders import densenet
 from bts_tpu_torch.ops import fused_dense
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -20,6 +20,8 @@ from bts_tpu_torch.apps import predict
 from bts_tpu_torch.data import loader, transforms
 from bts_tpu_torch.utils import colorize
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PINNED = ("model_flavor", "normalization")  # the port resolves both in parse_args
 
@@ -456,7 +458,7 @@ def test_cli_test_runs_the_run_dirs_snapshot(tmp_path):
     out = subprocess.run([sys.executable, "-m", "bts_tpu_torch.cli.test", "--device", "cpu",
                           f"--checkpoint_path={ckpt}", *argv], cwd=tmp_path,
                          capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "OMP_NUM_THREADS": "1",
+                         env={**os.environ,
                               "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")})
     assert out.returncode == 0, out.stderr[-3000:]
     assert f"Using model snapshot from {run_dir}" in out.stdout

@@ -21,6 +21,8 @@ import pytest
 
 from bts_tpu_torch.config import parse_args, parse_args_with_device
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SLICE_MODULES = [

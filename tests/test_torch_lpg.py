@@ -17,6 +17,8 @@ from bts_tpu.ops.lpg_pallas import lpg_pallas
 from bts_tpu_torch.ops import _build, lpg_cuda
 from bts_tpu_torch.ops import lpg as tlpg
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

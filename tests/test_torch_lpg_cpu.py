@@ -13,6 +13,8 @@ import torch
 
 from bts_tpu_torch.ops import _build, lpg, lpg_cpu
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 FWD_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 

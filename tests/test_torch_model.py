@@ -16,6 +16,7 @@ from bts_tpu_torch.models.convert import load_checkpoint, state_dict_from_flax
 from bts_tpu_torch.models.encoders import densenet
 
 from test_torch_decoder import randomize_bn
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 H, W = 64, 96
 TINY = "tiny_densenet_bts"

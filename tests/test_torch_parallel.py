@@ -41,6 +41,7 @@ import torch_parallel_ranks as ranks
 from test_torch_eval_online import _eval_kw, _write_nyu
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
 from test_torch_train_step import _Float64Numpy
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W, cfgs, tiny_variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,10 +85,8 @@ def job(tmp_path_factory):
     }
     path = tmp / "inputs.pt"
     torch.save(inputs, path)
-    with pytest.MonkeyPatch.context() as patch:
-        patch.setenv("OMP_NUM_THREADS", "1")  # the ranks share the workers' cores
-        results = launch.spawn(functools.partial(ranks.parallel_job, str(path)), Config(), 2,
-                               devices=["cpu", "cpu"])
+    results = launch.spawn(functools.partial(ranks.parallel_job, str(path)), Config(), 2,
+                           devices=["cpu", "cpu"])
     return {**inputs, "params": params, "stats": stats, "results": results}
 
 
@@ -394,10 +393,9 @@ def test_cli_train_on_two_cpu_ranks(tmp_path):
         "--batch_size 4", "--num_epochs 1", "--input_height 64", "--input_width 96",
         "--max_depth 10", "--log_freq 1", "--save_freq 2", "--device_augment",
         f"--log_directory {tmp_path / 'logs'}", "--model_name dp_run"]) + "\n")
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-m", "bts_tpu_torch.cli.train", "@" + str(args),
                           "--device", "cpu", "--num_devices", "2"], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600, env=env)
+                         capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     steps = re.findall(r"^\[epoch\]\[s/s_per_e/gs\]: \[0\]\[\d+/2/(\d+)\]", out.stdout, re.M)
     assert steps == ["1", "2"]

@@ -14,6 +14,7 @@ from bts_tpu_torch.cli import test as cli_test
 from bts_tpu_torch.models import bts
 
 from test_torch_model import tiny_encoder  # noqa: F401  (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 H, W = 60, 90  # not multiples of 32: both sides pad to 64x96 and crop back
 INPUT_H, INPUT_W = 64, 96  # bts_tpu initializes its model at this size

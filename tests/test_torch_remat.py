@@ -20,6 +20,7 @@ from bts_tpu_torch.training import optim, state
 
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
 from test_torch_tf_train import TINY_TF, _register as register_tiny_tf
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W, cfgs, tiny_variables
 from torch_zoo_helpers import tiny_resnets  # noqa: F401 (fixture)
 

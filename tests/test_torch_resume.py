@@ -39,6 +39,7 @@ from bts_tpu_torch.training.loop import train
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
 from test_torch_tf_train import TINY_TF, _register
 from test_torch_train_loop import _fake_steps, _loop_cfg, _small_state
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W, cfgs, named_leaves, tiny_variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -8,6 +8,8 @@ import os
 import numpy as np
 import pytest
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

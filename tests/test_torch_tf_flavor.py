@@ -39,6 +39,7 @@ from bts_tpu_torch.training import checkpoint, optim, state
 from bts_tpu_torch.training.loop import warm_start
 
 from test_torch_decoder import randomize_bn
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 ENC = "densenet121_bts"
 NF = 256

@@ -23,6 +23,7 @@ from test_torch_model import tiny_jax
 from test_torch_tf_flavor import randomize
 from test_torch_train_loop import _loop_cfg
 from test_torch_train_step import _bts_tpu_grads_float64
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W
 
 # -------------------------------------------------------------- train steps

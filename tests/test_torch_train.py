@@ -22,6 +22,7 @@ from bts_tpu_torch.ops import lpg as tlpg
 from bts_tpu_torch.training import loss, lr, optim
 
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W, cfgs, named_leaves, tiny_variables, to_flax
 
 

@@ -11,6 +11,8 @@ from bts_tpu.data import device_augment as jaug
 from bts_tpu_torch.data import device_augment as aug
 from bts_tpu_torch.training import state
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
 SRC_H, SRC_W, OUT_H, OUT_W = 27, 35, 16, 24
 
 

@@ -21,6 +21,7 @@ from bts_tpu_torch.training.lr import polynomial_decay_host
 
 import torch_parallel_ranks as ranks
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -184,9 +185,7 @@ def test_train_loop_on_two_gloo_ranks_stops_together_on_one_ranks_preemption(tmp
     would wait for rank 1 in step 3's collectives. A loop not started as the
     ranks ``num_devices`` names raises."""
     cfg = _loop_cfg(ranks.TINY, tmp_path, num_devices=2, save_freq=1000)
-    with pytest.MonkeyPatch.context() as patch:
-        patch.setenv("OMP_NUM_THREADS", "1")  # the ranks share the workers' cores
-        assert launch.spawn(ranks.preempted_train, cfg, 2, devices=["cpu", "cpu"]) == [2, 2]
+    assert launch.spawn(ranks.preempted_train, cfg, 2, devices=["cpu", "cpu"]) == [2, 2]
     run_dir = tmp_path / "logs" / "tiny_run"
     assert sorted(checkpoint.list_step_checkpoints(str(run_dir))) == [2]
     assert sorted(os.listdir(tmp_path / "logs")) == ["tiny_run"]
@@ -195,12 +194,9 @@ def test_train_loop_on_two_gloo_ranks_stops_together_on_one_ranks_preemption(tmp
 
 
 def _cli_train(args, *extra):
-    # One intra-op thread: the test workers share the machine's cores, and
-    # PyTorch's default of a thread per core oversubscribes them.
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
     return subprocess.run([sys.executable, "-m", "bts_tpu_torch.cli.train", "@" + str(args),
                            "--device", "cpu", *extra], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600, env=env)
+                          timeout=600)
 
 
 def test_cli_train_runs_two_steps_on_the_cpu_and_resumes_from_its_snapshot(tmp_path):

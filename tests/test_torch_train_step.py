@@ -20,6 +20,7 @@ from bts_tpu_torch.models.convert import state_dict_from_flax
 from bts_tpu_torch.training import optim, state
 
 from test_torch_model import tiny_encoder  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_train_helpers import H, W, cfgs, tiny_variables
 
 

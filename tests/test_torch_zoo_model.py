@@ -18,6 +18,7 @@ from bts_tpu_torch.models import bts
 from bts_tpu_torch.models.convert import load_checkpoint, state_dict_from_flax
 from bts_tpu_torch.training.checkpoint import load_checkpoint_dict
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from torch_zoo_helpers import H, W, ZOO, model_variables, tiny_resnets  # noqa: F401
 
 
