@@ -16,6 +16,7 @@ from torch import nn
 
 from bts_tpu_torch.models.decoder import BTSDecoder
 from bts_tpu_torch.models.encoders import densenet, mobilenet, resnet
+from bts_tpu_torch.models.graphed import ForwardGraphs, drop_graphs
 from bts_tpu_torch.models.layers import TF_BN_EPS
 from bts_tpu_torch.models.remat import POLICIES, SCOPES, checkpointed, records_grad
 
@@ -51,7 +52,12 @@ class BTSModel(nn.Module):
     convolutions' outputs (``remat_policy`` ``conv``) or nothing (``full``),
     and under ``remat_scope`` ``all`` the decoder is a second region that
     saves nothing (``models/remat.py``). Under no_grad or inference_mode it
-    changes nothing."""
+    changes nothing.
+
+    An inference forward on a card (eval mode, grad disabled) replays a CUDA
+    graph of itself from the second call of an input signature on
+    (``forward_graphs``, ``models/graphed.py``); ``train()``, ``.to()`` and
+    ``load_state_dict`` drop the held graphs."""
 
     def __init__(
         self,
@@ -84,8 +90,22 @@ class BTSModel(nn.Module):
         self.decoder = BTSDecoder(
             feat_out_channels, bts_size, max_depth, dataset, lpg_impl, flavor
         )
+        self.forward_graphs = ForwardGraphs()
+        self.register_load_state_dict_post_hook(drop_graphs)
 
     def forward(self, x: torch.Tensor, focal: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return self.forward_graphs(self, self._forward, x, focal)
+
+    def train(self, mode: bool = True) -> "BTSModel":
+        if mode:
+            self.forward_graphs.clear()
+        return super().train(mode)
+
+    def _apply(self, fn, recurse=True):
+        self.forward_graphs.clear()
+        return super()._apply(fn, recurse)
+
+    def _forward(self, x: torch.Tensor, focal: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         if not (self.remat and records_grad(self)):
             return self.decoder(self.encoder(x), focal)
         skips = checkpointed(self.encoder, x, save_convolutions=self.remat_policy == "conv")

@@ -23,7 +23,9 @@ import torch
 from bts_tpu_torch.ops import _build
 from bts_tpu_torch.ops.fused_dense import pack_eo_kmajor, pack_taps_kmajor
 
-# Kernel launches in this process; each bumped once per launch, nowhere else.
+# Kernel launches that ran in this process: each bumped here once per
+# launch, and by a CUDA graph's replay (models/graphed.py) for the launches
+# its capture recorded; a capture itself runs nothing and counts nothing.
 TAPS_LAUNCHES = 0
 EO_LAUNCHES = 0
 

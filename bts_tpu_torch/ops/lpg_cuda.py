@@ -18,8 +18,10 @@ import torch
 
 from bts_tpu_torch.ops import _build
 
-# Kernel launches in this process; each bumped once per launch of its
-# kernel, nowhere else.
+# Kernel launches that ran in this process: each bumped here once per
+# launch of its kernel, and by a CUDA graph's replay (models/graphed.py) for
+# the launches its capture recorded; a capture itself runs nothing and
+# counts nothing.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 

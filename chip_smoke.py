@@ -33,7 +33,11 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. the serving path: ``bts_tpu_torch.cli.test.main`` over 8 synthetic NYU
    480x640 frames in bf16, with the kernels' launch counts reset just
    before; 8 uint16 pngs, and exactly 78 taps, 0 eo and 3 LPG launches per
-   forward;
+   forward (the first forward runs eager and counts its launches where the
+   kernels' wrappers launch them; the second is a capture and a replay of
+   the forward's CUDA graph, whose launches are the capture's tally, added
+   by ``models/graphed.py``; phase 15 holds such replays to the eager
+   forward bit for bit);
 6. bf16 against f32 on one 4x480x640 batch (max abs diff < 0.15 m), for
    dense_impl auto and for eo (the eo path: its launch counts reset just
    before, 78 eo launches); then the forward's img/s in bf16 at batch 1 and
@@ -238,11 +242,28 @@ Phases, in order; any failure raises and the script exits nonzero:
        f32 step with conv/all against one process, deterministic cuDNN,
        at ``DP_TOL``, the ranks' states equal, the global BN's buffers'
        largest difference printed; the ranks start first and run beside
-       (b), which times nothing.
-Each phase's seconds are printed as it ends, and as JSON after phase 14.
+       (b), which times nothing;
+15. the graphed inference forward (``models/graphed.py``; PyTorch's default
+    cuDNN and matmul settings): DenseNet161-BTS NYU 480x640 at batch 8 and
+    1 and ResNeXt-101-BTS KITTI 352x1216 at batch 8, in bf16 autocast and
+    in f32, and DenseNet161 NYU batch 8 with ``dense_impl`` ``eo`` and in
+    the TF graph, in bf16, seeded: the third call of a call key (a replay)
+    bit for bit against the eager forward (``model._forward``) on the same
+    weights and input, its launches equal to the eager forward's (78 taps,
+    0 for ResNeXt, 78 eo for ``eo``, and 3 LPG); the next call on another
+    input bit for bit against its eager forward, and the replay's outputs
+    unchanged by it; one eager call, one capture and three replays counted;
+    ``load_state_dict`` with another seed's weights drops the graphs at
+    once, and the replay captured again is bit for bit the eager forward on
+    them; a weight changed in place makes the call drop the stale replay's
+    outputs and return the eager forward's; the host ms (until the call
+    returns) and wall ms of an eager and a replayed call, with the card's
+    name and power limit.
+Each phase's seconds are printed as it ends, and as JSON after phase 15.
 
 The line before the last is the kernels' JSON record (``launches`` from the
-serving path of phase 5 for LPG and bf16 taps, from phase 4's f32 forwards
+serving path of phase 5 for LPG and bf16 taps (a replayed forward's from
+its capture's tally), from phase 4's f32 forwards
 for f32 taps and f32 eo, from the bf16 eo forward of phase 6 for bf16 eo,
 from phase 7's ``cli.train`` for the LPG backward, with its per-site times
 and the launch floor; both LPG records carry phase 9's counts by path, and
@@ -2268,6 +2289,164 @@ def phase14(torch, Config, create_model, create_optimizer, TrainState, make_trai
         "two_ranks": two_ranks, "launches": launches, "device": smi}}))
     return launches
 
+
+# Phase 15's forwards: (label, encoder, dataset, max_depth, batch, (H, W),
+# focal, dense_impl, flavor, dtypes, the launches a forward makes).
+BOTH = ("bfloat16", "float32")
+GRAPH_CASES = [
+    ("densenet161 nyu b8", "densenet161_bts", "nyu", MAX_DEPTH, 8, (480, 640), 518.8579,
+     "auto", "pt", BOTH, {"taps": DENSE_LAYERS, "eo": 0, "lpg": 3, "lpg_backward": 0}),
+    ("densenet161 nyu b1", "densenet161_bts", "nyu", MAX_DEPTH, 1, (480, 640), 518.8579,
+     "auto", "pt", BOTH, {"taps": DENSE_LAYERS, "eo": 0, "lpg": 3, "lpg_backward": 0}),
+    ("resnext101 kitti b8", "resnext101_bts", "kitti", 80.0, 8, (352, 1216), 721.5377,
+     "auto", "pt", BOTH, {"taps": 0, "eo": 0, "lpg": 3, "lpg_backward": 0}),
+    ("densenet161 nyu b8 eo", "densenet161_bts", "nyu", MAX_DEPTH, 8, (480, 640), 518.8579,
+     "eo", "pt", ("bfloat16",), {"taps": 0, "eo": DENSE_LAYERS, "lpg": 3, "lpg_backward": 0}),
+    ("densenet161 nyu b8 tf", "densenet161_bts", "nyu", MAX_DEPTH, 8, (480, 640), 518.8579,
+     "auto", "tf", ("bfloat16",), None),  # None: the eager forward's own launches
+]
+GRAPH_TIMED_CALLS = 10
+
+
+def largest_gap(torch, got, want):
+    """The largest absolute difference over the five outputs; 0.0 when every
+    output is bit-equal."""
+    return max((g.float() - w.float()).abs().max().item() if not torch.equal(g, w) else 0.0
+               for g, w in zip(got, want, strict=True))
+
+
+def call_ms(torch, fn, calls=GRAPH_TIMED_CALLS):
+    """Medians of a call's host ms (until it returns) and wall ms (until the
+    card is done), the card idle before each call."""
+    host, wall = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(host), statistics.median(wall)
+
+
+def phase15(torch, Config, create_model, counts, reset_counts, smi):
+    """Phase 15, the graphed inference forward (``models/graphed.py``), under
+    PyTorch's default cuDNN and matmul settings: for each of GRAPH_CASES in
+    its dtypes (bf16 autocast, f32), the third call of a call key (a replay)
+    against the eager forward (``model._forward``) on the same weights and
+    input, bit for bit; its launches, which must equal the eager forward's
+    (and the case's expected taps, eo and 3 LPG where it gives them); the
+    replay's outputs unchanged by the next call on another input, which
+    matches its own eager forward; the counters (one eager call, one
+    capture, the rest replays); then new weights by ``load_state_dict``
+    (the graphs dropped at once) and the replay against the eager forward on
+    them; then a weight changed in place, where the stale replay's outputs
+    are dropped and the call returns the eager forward's; and the host and
+    wall ms of an eager and a replayed call. Returns the replays' launches
+    by case."""
+    from bts_tpu_torch.models import graphed
+
+    launches, report = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    with torch_defaults(torch):
+        for (label, encoder, dataset, max_depth, batch, (h, w), f, dense_impl, flavor, dtypes,
+             want) in GRAPH_CASES:
+            cfg = Config(encoder=encoder, dataset=dataset, max_depth=max_depth, bts_size=512,
+                         model_flavor=flavor)
+            model = create_model(cfg).cuda().eval()
+            if dense_impl != "auto":
+                model.encoder.dense_impl = dense_impl
+            xa, xb = (torch.randn(batch, 3, h, w, device="cuda", generator=gen) for _ in "ab")
+            focal = torch.full((batch,), f, device="cuda")
+            for dtype in dtypes:
+                what = f"{label} {dtype}"
+                with torch.inference_mode(), torch.autocast(
+                        "cuda", dtype=torch.bfloat16, enabled=dtype == "bfloat16"):
+                    reset_counts()
+                    want_a = model._forward(xa, focal)
+                    torch.cuda.synchronize()
+                    eager_launched = counts()
+                    want_b = model._forward(xb, focal)
+                    c0 = (graphed.CAPTURES, graphed.REPLAYS, graphed.EAGER_FORWARDS)
+                    model(xa, focal), model(xa, focal)  # eager, then capture
+                    reset_counts()
+                    got_a = model(xa, focal)
+                    torch.cuda.synchronize()
+                    launched = counts()
+                    kept = [o.clone() for o in got_a]
+                    got_b = model(xb, focal)
+                    torch.cuda.synchronize()
+                    moved = (graphed.CAPTURES - c0[0], graphed.REPLAYS - c0[1],
+                             graphed.EAGER_FORWARDS - c0[2])
+                    eager_ms = call_ms(torch, lambda: model._forward(xa, focal))
+                    replay_ms = call_ms(torch, lambda: model(xa, focal))
+                if launched != eager_launched or launched != (want or eager_launched):
+                    raise RuntimeError(f"{what}: a replay launched {launched}, its eager forward "
+                                       f"{eager_launched}, expected {want}")
+                if moved != (1, 3, 1):
+                    raise RuntimeError(f"{what}: (captures, replays, eager forwards) moved by "
+                                       f"{moved}, expected (1, 3, 1)")
+                gaps = {"replay": largest_gap(torch, got_a, want_a),
+                        "next input": largest_gap(torch, got_b, want_b),
+                        "after the next call": largest_gap(torch, got_a, kept)}
+                if any(gaps.values()):
+                    raise RuntimeError(f"{what}: the graphed forward is not the eager one bit "
+                                       f"for bit, largest gaps {gaps}")
+                launches[what] = launched
+                report[what] = {"eager_host_ms": eager_ms[0], "eager_wall_ms": eager_ms[1],
+                                "replay_host_ms": replay_ms[0], "replay_wall_ms": replay_ms[1]}
+                print(f"{what}: replay bit-equal to eager (also on the next input, and its "
+                      f"outputs after the next call); a replay launches {launched}; host ms a "
+                      f"call eager {eager_ms[0]!r}, replay {replay_ms[0]!r}; wall ms eager "
+                      f"{eager_ms[1]!r}, replay {replay_ms[1]!r} ({smi})", flush=True)
+            # New weights: the held graphs go at once, and the graph captured
+            # again computes with the new weights.
+            fresh = create_model(cfg.replace(seed=cfg.seed + 1)).state_dict()
+            model.load_state_dict(fresh)
+            if model.forward_graphs.graphs:
+                raise RuntimeError(f"{label}: load_state_dict left graphs held")
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                old = model(xa, focal)  # eager on the new weights
+                want_new = model._forward(xa, focal)
+                model(xa, focal)  # capture
+                got_new = model(xa, focal)
+            new_gap = largest_gap(torch, got_new, want_new)
+            moved = largest_gap(torch, got_new, want_a)
+            if new_gap or not moved or largest_gap(torch, old, want_new):
+                raise RuntimeError(f"{label}: after load_state_dict the replay is {new_gap} from "
+                                   f"the eager forward on the new weights and {moved} from the "
+                                   "old weights' outputs")
+            # A weight changed in place: the held graph replays on the old
+            # weights, and the state check drops its outputs and the graph.
+            with torch.no_grad():
+                next(model.decoder.parameters()).mul_(0.5)
+            replays = graphed.REPLAYS
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                got_edit = model(xa, focal)
+                want_edit = model._forward(xa, focal)
+            edit_gap, edited = largest_gap(torch, got_edit, want_edit), largest_gap(
+                torch, got_edit, got_new)
+            if edit_gap or not edited or graphed.REPLAYS != replays or model.forward_graphs.graphs:
+                raise RuntimeError(f"{label}: after a weight changed in place the call is "
+                                   f"{edit_gap} from the eager forward, {edited} from the old "
+                                   f"weights' replay, {graphed.REPLAYS - replays} replays counted, "
+                                   f"{len(model.forward_graphs.graphs)} graphs held")
+            print(f"{label} bf16: after load_state_dict the replay is bit-equal to the eager "
+                  f"forward on the new weights, {moved!r} from the old weights' outputs; after "
+                  f"a weight changed in place the call is the eager forward, {edited!r} from "
+                  "the stale replay's outputs", flush=True)
+            del (model, fresh, xa, xb, want_a, want_b, got_a, got_b, kept, old, want_new, got_new,
+                 got_edit, want_edit)
+            torch.cuda.empty_cache()
+    hits = graphed.REPLAYS / (graphed.REPLAYS + graphed.EAGER_FORWARDS)
+    print(json.dumps({"graphs": {"calls": report, "launches": launches, "replays":
+                                 graphed.REPLAYS, "eager_forwards": graphed.EAGER_FORWARDS,
+                                 "captures": graphed.CAPTURES, "hit_share": hits,
+                                 "device": smi}}))
+    return launches
+
+
 def main():
     import torch
 
@@ -3051,6 +3230,8 @@ def main():
     phase("14 rematerialisation: memory and time, equality, the large batch, two ranks")
     remat_launches = phase14(torch, Config, create_model, create_optimizer, TrainState,
                              make_train_step, counts, reset_counts, smi)
+    phase("15 the graphed inference forward: replays against eager, launches, new weights, ms")
+    phase15(torch, Config, create_model, counts, reset_counts, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
