@@ -4,7 +4,7 @@ when something other than a sound program stands in the program's place.
 For each cell, on the cell's own inputs and sizes, against the float32
 reference:
 
-- ``control``: the reference with float8 convolutions
+- ``control``: the reference with float8 convolutions and linear layers
   (``reference/lowp.py``), the precision below the configurations' bfloat16.
 
 The benchmark's own runs never run these. On a card, for several seeds:
@@ -26,7 +26,6 @@ import torch
 from benchmark import compare, spec
 from benchmark.drivers import serve_closed
 from benchmark.reference.lowp import fp8_round, set_quant
-from benchmark.reference.model import no_tf32
 from benchmark.weights import reference_model
 
 
@@ -50,7 +49,6 @@ def readings(workload: str, seed: int, device: torch.device) -> dict:
     bench = spec.benchmark()
     cell = spec.cell(bench, workload)
     config, traffic = spec.config(cell["config"]), spec.traffic(cell["traffic"])
-    no_tf32()
     return READINGS[traffic["kind"]](config, traffic, seed, device)
 
 

@@ -1,11 +1,13 @@
 """Closed-loop serving, as ``cli.test`` dumps depth maps: each call is
 ``apps/predict.run_predictions``'s step for one batch. The host batch, a
-float32 NHWC array as the loader hands it, goes to the card
+float32 NHWC array as the loader hands it, normalized as the
+configuration's ``normalization`` says, goes to the card
 (``torch.from_numpy(...).permute(0, 3, 1, 2).to(device)``, its focals
-likewise); ``forward_padded`` runs under ``inference_mode`` and the
-dumper's ``compute_context``; all five outputs come back to the host
-synchronously (``o[:, 0].cpu().numpy()``) and the depth is checked finite.
-Only the dumper's png writing is left out.
+likewise); ``forward_padded`` runs the configuration's model (``models/``)
+under ``inference_mode`` and the dumper's ``compute_context``; all its
+outputs come back to the host synchronously (``o[:, 0].cpu().numpy()``),
+and the last, the depth, is checked finite. Only the dumper's png writing is
+left out.
 
 Mix parameters: ``batch``, ``pool`` (distinct seeded host batches, used in
 turn), ``check_calls`` (calls kept for the correctness check, a uniform
@@ -21,8 +23,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchmark import compare, program
-from benchmark.reference.model import IMAGENET_MEAN, IMAGENET_STD, no_tf32
+from benchmark import compare, spec
+from benchmark.reference import no_tf32
 from benchmark.weights import reference_model, seeded_state_dict
 
 WARMUP_CALLS = 2
@@ -38,17 +40,19 @@ def seeded_batches(config: dict, batch: int, pool: int, seed: int,
     gen.manual_seed(seed ^ 0x5EED)
     h, w = config["input_height"], config["input_width"]
     kw = dict(dtype=torch.float32, device=device)
-    mean, std = torch.tensor(IMAGENET_MEAN, **kw), torch.tensor(IMAGENET_STD, **kw)
+    norm = spec.normalization(config["normalization"])
+    mean, std = torch.tensor(norm["mean"], **kw), torch.tensor(norm["std"], **kw)
     return [((torch.rand(batch, h, w, 3, generator=gen, **kw) - mean) / std).cpu().numpy()
             for _ in range(pool)]
 
 
 def reference_depth(model, image: np.ndarray, focal: float, device: torch.device) -> np.ndarray:
-    """The reference's depth maps of one host batch, ``REFERENCE_ROWS`` at a time."""
+    """The reference's depth maps of one host batch, ``REFERENCE_ROWS`` at a time,
+    in float32 with TF32 off."""
     x = torch.from_numpy(image).permute(0, 3, 1, 2)
     f = torch.full((REFERENCE_ROWS,), focal, dtype=torch.float32, device=device)
     out = []
-    with torch.no_grad():
+    with torch.no_grad(), no_tf32():
         for r in range(0, x.shape[0], REFERENCE_ROWS):
             rows = x[r:r + REFERENCE_ROWS].contiguous().to(device)
             out.append(model(rows, f[:rows.shape[0]])[:, 0].cpu())
@@ -61,9 +65,10 @@ class Driver:
 
         self.config, self.traffic, self.seed, self.device = config, traffic, seed, device
         self.batch = traffic["batch"]
-        self.cfg = program.port_config(config, seed)
-        self.model = program.port_model(config, seeded_state_dict(config, seed, device),
-                                        device).eval()
+        model_file = spec.model(config)
+        self.cfg = model_file.port_config(config, seed)
+        self.model = model_file.port_model(config, seeded_state_dict(config, seed, device),
+                                           device).eval()
         self.images = seeded_batches(config, self.batch, traffic["pool"], seed, device)
         self.focal = np.full((self.batch,), config["focal"], dtype=np.float32)
         self._context = lambda: compute_context(self.cfg, device)
@@ -107,7 +112,6 @@ class Driver:
 
     def check(self) -> dict:
         """The compared numbers, against the plain reference."""
-        no_tf32()
         model = reference_model(self.config, self.seed, self.device).eval()
         refs = {slot: reference_depth(model, self.images[slot], self.config["focal"], self.device)
                 for slot in sorted({slot for slot, _ in self.kept.items})}

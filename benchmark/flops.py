@@ -1,12 +1,16 @@
 """Work counted from shapes, never from how the program computes it.
 
-- ``forward_flops``: ``FlopCounterMode`` over the plain reference on the
-  meta device at a cell's shapes (convolutions and matrix products; the
-  LPG's and the normalizations' elementwise work is not counted).
-- ``dense_layer_work``: the operations and bytes of DenseNet's dense layers
-  (BN-ReLU-1x1 conv-BN-ReLU-3x3 conv) at a batch and an input size, from the
-  published widths alone: operations 2*B*H*W*(C_in*Cmid + Cmid*G*9) a layer;
-  bytes its input, output, weights and batch-norm vectors, each once.
+- ``forward_flops``: ``FlopCounterMode`` over the configuration's plain
+  reference (``spec.model(config).reference``) on the meta device at a
+  cell's shapes: convolutions and matrix products, attention's QK^T and AV
+  among them; elementwise work (BTS's LPG, normalizations, softmax) is not
+  counted.
+- ``dense_layer_shapes`` and ``dense_layer_work``: DenseNet's roofline work,
+  read only by ``metrics/dense_layers.roofline_pct.py``: the operations and
+  bytes of the dense layers (BN-ReLU-1x1 conv-BN-ReLU-3x3 conv) at a batch
+  and an input size, from the published widths alone: operations
+  2*B*H*W*(C_in*Cmid + Cmid*G*9) a layer; bytes its input, output, weights
+  and batch-norm vectors, each once.
 - ``peak``: the card's published peaks (``peaks.json``).
 """
 
@@ -20,7 +24,7 @@ from typing import List, Tuple
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark.reference.model import BTS
+from benchmark import spec
 
 PEAKS = Path(__file__).resolve().parent / "peaks.json"
 
@@ -32,15 +36,11 @@ def _count(fn) -> int:
     return counter.get_total_flops()
 
 
-def _meta_model(config: dict) -> BTS:
-    with torch.device("meta"):
-        return BTS(config)
-
-
 @functools.lru_cache(maxsize=None)
 def _forward_flops(key: str, batch: int, h: int, w: int) -> int:
     config = json.loads(key)
-    model = _meta_model(config).eval()
+    with torch.device("meta"):
+        model = spec.model(config).reference(config).eval()
     x = torch.empty(batch, 3, h, w, device="meta")
     focal = torch.empty(batch, device="meta")
     with torch.no_grad():

@@ -1,9 +1,9 @@
-"""The lower-precision control: the reference with every convolution in
-float8, the step below the bfloat16 the configurations state. Each
-convolution's input and weight are rounded to e4m3 in the forward, and the
-gradients that flow back into them to e5m2 in the backward, each at one
-scale a tensor that maps its largest magnitude to the format's largest, as
-float8 training recipes scale them.
+"""The lower-precision control: the reference with every convolution and
+linear layer in float8, the step below the bfloat16 the configurations
+state. Each such layer's input and weight are rounded to e4m3 in the
+forward, and the gradients that flow back into them to e5m2 in the
+backward, each at one scale a tensor that maps its largest magnitude to the
+format's largest, as float8 training recipes scale them.
 
 ``correct`` has to come out false for this control: it shows that the
 comparison's limits separate the program from a lower precision.
@@ -12,8 +12,6 @@ comparison's limits separate the program from a lower precision.
 from __future__ import annotations
 
 import torch
-
-from benchmark.reference.model import Conv
 
 FORMATS = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
 
@@ -40,8 +38,9 @@ def fp8_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def set_quant(model: torch.nn.Module, fn) -> torch.nn.Module:
-    """Route every ``Conv`` of ``model`` through ``fn`` (None: exact)."""
+    """Route every module of ``model`` that has a ``quant`` attribute (each
+    reference's convolutions and linear layers) through ``fn`` (None: exact)."""
     for m in model.modules():
-        if isinstance(m, Conv):
+        if hasattr(m, "quant"):
             m.quant = fn
     return model

@@ -26,9 +26,6 @@ from torch import nn
 DECODER_BN_MOMENTUM = 0.01
 DECODER_BN_EPS = 1.1e-5
 ENCODER_BN_EPS = 1e-5
-# The inputs' normalization (torchvision's ImageNet statistics).
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 class Conv(nn.Conv2d):
@@ -347,9 +344,3 @@ class BTS(nn.Module):
 
     def forward(self, image, focal):
         return self.decoder(self.encoder(image), focal)
-
-
-def no_tf32():
-    """Keep float32 convolutions and matmuls in float32 on a card."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False

@@ -70,12 +70,13 @@ def card_line() -> str:
 def execute(workload: str, seed: int, seconds: float, trace: bool, device: torch.device,
             chips: int = 1, t0: float = _T0) -> dict:
     """One run of ``workload``: the result's fields, in the order printed."""
-    from benchmark import compare, flops, program, spec
+    from benchmark import compare, flops, spec
     from benchmark.trace import traced
 
     bench = spec.benchmark()
     cell = spec.cell(bench, workload)
     config, traffic = spec.config(cell["config"]), spec.traffic(cell["traffic"])
+    counters = spec.model(config).counters
     limits = spec.limits(workload)
     cuda = device.type == "cuda"
 
@@ -84,12 +85,12 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: torch
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     span = min(seconds, traffic["trace_seconds"]) if trace else seconds
-    before = program.counters()
+    before = counters()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     with traced(trace) as tr:
         out = driver.window(span)
     peak = max(peak, torch.cuda.max_memory_allocated()) if cuda else 0
-    after = program.counters()
+    after = counters()
     driver.release()
     try:
         numbers = driver.check()

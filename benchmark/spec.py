@@ -1,11 +1,13 @@
 """What a run measures, found by name: the cell's entry in ``BENCHMARK.json``,
-its configuration (``configs/<config>.json``), its traffic mix
+its configuration (``configs/<config>.json``), the configuration's model
+(``models/<model>.py``, named by its ``model`` key) and input normalization
+(``normalization/<normalization>.json``), its traffic mix
 (``traffic/<traffic>.json``, whose ``kind`` names the generator in
 ``drivers/``), the limits of its correctness check (``limits/<cell>.json``)
 and its per-layer metrics' readers (``metrics/<metric>.py``).
 
-A new configuration, mix, cell or metric is a new file and a new entry in
-``BENCHMARK.json``: nothing here names one.
+A new model, configuration, mix, cell or metric is a new file and a new
+entry in ``BENCHMARK.json``: nothing here names one.
 """
 
 from __future__ import annotations
@@ -39,6 +41,23 @@ def traffic(name: str) -> dict:
 
 def limits(cell: str) -> dict:
     return load_json(HERE / "limits" / f"{cell}.json")
+
+
+def model(config: dict):
+    """The model file that ``config``'s ``model`` key names,
+    ``models/<model>.py`` (its contract: ``models/bts.py``)."""
+    name = config.get("model")
+    if name is None:
+        raise KeyError(f"configuration {config.get('name')!r} has no 'model' key")
+    if not (HERE / "models" / f"{name}.py").is_file():
+        raise FileNotFoundError(f"configuration {config.get('name')!r} names model {name!r}, "
+                                f"but there is no benchmark/models/{name}.py")
+    return importlib.import_module(f"benchmark.models.{name}")
+
+
+def normalization(name: str) -> dict:
+    """``mean`` and ``std`` a channel of the inputs' normalization."""
+    return load_json(HERE / "normalization" / f"{name}.json")
 
 
 def cell(bench: dict, name: str) -> dict:

@@ -29,9 +29,11 @@ def _python(code: str) -> str:
 
 def test_reference_imports_nothing_of_the_program():
     tops = _python(
-        "import sys, benchmark.reference.model, "
+        "import sys, benchmark.reference.model, benchmark.models.bts, "
         "benchmark.reference.lowp, benchmark.weights, benchmark.compare, benchmark.flops, "
-        "benchmark.trace, benchmark.reduce; "
+        "benchmark.trace, benchmark.reduce\n"
+        "from benchmark import spec\n"
+        "assert spec.model(spec.config('bts-nyu-densenet161')) is benchmark.models.bts\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))")
     assert "bts_tpu_torch" not in tops and "bts_tpu" not in tops and "jax" not in tops
 

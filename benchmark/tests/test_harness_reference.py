@@ -6,7 +6,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from benchmark import compare, program, spec
+from benchmark import compare, spec
 from benchmark.tests.tiny import tiny_config
 from benchmark.weights import reference_model, seeded_state_dict
 
@@ -16,7 +16,8 @@ CPU = torch.device("cpu")
 @pytest.mark.parametrize("name", ["bts-nyu-densenet161", "bts-kitti-resnext101"])
 def test_forward_matches_program(name):
     config = tiny_config(spec.config(name))
-    port = program.port_model(config, seeded_state_dict(config, 3, CPU), CPU).eval()
+    port = spec.model(config).port_model(config, seeded_state_dict(config, 3, CPU),
+                                         CPU).eval()
     ref = reference_model(config, 3, CPU).eval()
     x = torch.randn(2, 3, config["input_height"], config["input_width"],
                     generator=torch.Generator().manual_seed(0))

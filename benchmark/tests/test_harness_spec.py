@@ -28,9 +28,15 @@ def test_config_file(entry):
     assert entry["file"] == f"benchmark/configs/{entry['name']}.json"
     assert config["name"] == entry["name"] and config["source"] == entry["source"]
     assert config["reduced"] == entry["reduced"] == []
-    for key in ("encoder", "encoder_arch", "bts_size", "dataset", "max_depth", "focal",
-                "input_height", "input_width", "compute_dtype", "train", "assumed"):
+    for key in ("model", "focal", "normalization", "input_height", "input_width",
+                "compute_dtype", "assumed"):
         assert key in config
+    spec.normalization(config["normalization"])
+    model = spec.model(config)
+    for fn in ("reference", "port_config", "port_model", "counters", "tiny"):
+        assert callable(getattr(model, fn))
+    for key in model.KEYS:
+        assert key in config, key
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])

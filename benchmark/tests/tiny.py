@@ -1,6 +1,6 @@
 """Tiny stand-ins for the benchmark's configurations and mixes, so a whole
-run fits a CPU test: DenseNet121's published block at bts_size 128 and
-64x96 frames, two images a batch."""
+run fits a CPU test: each configuration at its model file's ``tiny`` size,
+two images a batch."""
 
 from __future__ import annotations
 
@@ -8,19 +8,9 @@ import copy
 
 from benchmark import spec
 
-DENSENET121 = {"family": "densenet", "block_config": [6, 12, 24, 16], "growth_rate": 32,
-               "bn_size": 4, "num_init_features": 64}
-RESNEXT50 = {"family": "resnet", "layers": [3, 4, 6, 3], "groups": 32, "width_per_group": 4}
-
 
 def tiny_config(config: dict) -> dict:
-    c = copy.deepcopy(config)
-    if c["encoder_arch"]["family"] == "densenet":
-        c.update(encoder="densenet121_bts", encoder_arch=dict(DENSENET121))
-    else:
-        c.update(encoder="resnext50_bts", encoder_arch=dict(RESNEXT50))
-    c.update(bts_size=128, input_height=64, input_width=96)
-    return c
+    return spec.model(config).tiny(config)
 
 
 def tiny_traffic(traffic: dict) -> dict:
