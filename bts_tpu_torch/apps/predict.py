@@ -50,9 +50,9 @@ def compute_context(cfg: Config, device: torch.device):
 
 
 def load_model(cfg: Config, device: torch.device) -> torch.nn.Module:
-    """create_model(cfg) seeded from cfg.seed, then the weights of
-    ``cfg.checkpoint_path`` (a reference or port .pth, or a TF checkpoint)
-    when one is set."""
+    """create_model(cfg) seeded from cfg.seed (BTS, or NeWCRFs for
+    ``--encoder large07``), then the weights of ``cfg.checkpoint_path`` (a
+    reference or port .pth, or a TF checkpoint) when one is set."""
     from bts_tpu_torch.models.bts import create_model
     from bts_tpu_torch.models.convert import load_weights
 
@@ -73,7 +73,14 @@ def forward_padded(model, image: torch.Tensor, focal: torch.Tensor):
 
 def run_predictions(cfg: Config, device: torch.device) -> str:
     """Dump predictions for cfg.filenames_file into result_<model_name>/.
-    Returns the output dir."""
+    The depth map is the model's last output; ``--save_lpg`` also writes
+    BTS's four guidance maps, which a NeWCRFs model has not. Returns the
+    output dir."""
+    from bts_tpu_torch.models.newcrfs import VERSIONS
+
+    if cfg.save_lpg and cfg.encoder in VERSIONS:
+        raise ValueError(f"--save_lpg writes BTS's LPG maps; --encoder {cfg.encoder} "
+                         "(NeWCRFs) returns the depth map alone")
     device = torch.device(device)
     model = load_model(cfg, device)
     loader = EvalLoader(cfg, "test")
@@ -91,7 +98,8 @@ def run_predictions(cfg: Config, device: torch.device) -> str:
         focal = torch.from_numpy(batch["focal"]).to(device)
         with torch.inference_mode(), compute_context(cfg, device):
             outs = forward_padded(model, image, focal)
-        lpg8, lpg4, lpg2, reduc1, depth = [o[:, 0].cpu().numpy() for o in outs]
+        outs = [o[:, 0].cpu().numpy() for o in outs]
+        depth = outs[-1]
         if not np.isfinite(depth).all():
             raise FloatingPointError("non-finite depth in the model's output")
         for i, w in enumerate(batch["weight"]):
@@ -103,7 +111,7 @@ def run_predictions(cfg: Config, device: torch.device) -> str:
             save_depth_png(os.path.join(out_dir, "raw", base), d, cfg.dataset)
             if cfg.save_lpg:
                 _save_lpg(cfg, out_dir, base, batch["image"][i], entry, normalization,
-                          d, lpg8[i], lpg4[i], lpg2[i], reduc1[i])
+                          d, *(o[i] for o in outs[:4]))
             n += 1
     print(f"Saved {n} predictions to {out_dir} in {time.time() - t0:.1f}s on {device}")
     return out_dir

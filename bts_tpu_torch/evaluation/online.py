@@ -62,7 +62,7 @@ def make_eval_forward(model: torch.nn.Module, cfg: Config) -> Callable:
             with torch.no_grad(), compute_context(cfg, device):
                 x = torch.from_numpy(np.ascontiguousarray(image)).permute(0, 3, 1, 2).to(device)
                 f = torch.from_numpy(np.asarray(focal, np.float32)).to(device)
-                depth = forward_padded(model, x, f)[4][:, 0]
+                depth = forward_padded(model, x, f)[-1][:, 0]
         finally:
             for m, training in modes:
                 m.training = training

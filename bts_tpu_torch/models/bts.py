@@ -14,9 +14,10 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from bts_tpu_torch.models import newcrfs
 from bts_tpu_torch.models.decoder import BTSDecoder
 from bts_tpu_torch.models.encoders import densenet, mobilenet, resnet
-from bts_tpu_torch.models.graphed import ForwardGraphs, drop_graphs
+from bts_tpu_torch.models.graphed import GraphedForward
 from bts_tpu_torch.models.layers import TF_BN_EPS
 from bts_tpu_torch.models.remat import POLICIES, SCOPES, checkpointed, records_grad
 
@@ -32,7 +33,7 @@ ENCODERS = {
 }
 
 
-class BTSModel(nn.Module):
+class BTSModel(GraphedForward):
     """image (B,3,H,W) normalized, focal (B,) -> (lpg8x8, lpg4x4, lpg2x2,
     reduc1x1, depth_est), each (B,1,H,W) float32.
 
@@ -90,20 +91,6 @@ class BTSModel(nn.Module):
         self.decoder = BTSDecoder(
             feat_out_channels, bts_size, max_depth, dataset, lpg_impl, flavor
         )
-        self.forward_graphs = ForwardGraphs()
-        self.register_load_state_dict_post_hook(drop_graphs)
-
-    def forward(self, x: torch.Tensor, focal: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        return self.forward_graphs(self, self._forward, x, focal)
-
-    def train(self, mode: bool = True) -> "BTSModel":
-        if mode:
-            self.forward_graphs.clear()
-        return super().train(mode)
-
-    def _apply(self, fn, recurse=True):
-        self.forward_graphs.clear()
-        return super()._apply(fn, recurse)
 
     def _forward(self, x: torch.Tensor, focal: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         if not (self.remat and records_grad(self)):
@@ -134,16 +121,34 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def check_encoder(name: str) -> None:
-    """Raise unless ``name`` is an encoder of the zoo."""
-    if name not in ENCODERS:
-        raise ValueError(f"unknown encoder {name!r}; options: {sorted(ENCODERS)}")
+    """Raise unless ``name`` is an encoder of the zoo or a NeWCRFs version."""
+    if name not in ENCODERS and name not in newcrfs.VERSIONS:
+        raise ValueError(f"unknown encoder {name!r}; options: "
+                         f"{sorted(ENCODERS) + sorted(newcrfs.VERSIONS)}")
 
 
-def create_model(cfg) -> BTSModel:
-    """Build a BTSModel from a Config on the CPU, its weights seeded from
-    ``cfg.seed``, in the graph of ``cfg.resolved_flavor``, rematerialising
-    as ``cfg.remat``, ``remat_policy`` and ``remat_scope`` say."""
+def check_trainable(encoder: str) -> None:
+    """Raise for an encoder that this port serves but does not train."""
+    if encoder in newcrfs.VERSIONS:
+        raise ValueError(f"--encoder {encoder} (NeWCRFs) is served, not trained, by this "
+                         "port: its window-attention kernel has no backward; train a BTS "
+                         "encoder")
+
+
+def create_model(cfg, training: bool = False) -> nn.Module:
+    """Build the model of ``cfg.encoder`` on the CPU, its weights seeded from
+    ``cfg.seed``: a BTSModel in the graph of ``cfg.resolved_flavor``,
+    rematerialising as ``cfg.remat``, ``remat_policy`` and ``remat_scope``
+    say; or, for a NeWCRFs version (``--encoder large07``), a NeWCRFsModel,
+    which serves only: with ``training`` it raises (``check_trainable``)."""
     check_encoder(cfg.encoder)
+    if training:
+        check_trainable(cfg.encoder)
+    if cfg.encoder in newcrfs.VERSIONS:
+        if cfg.resolved_flavor != "pt":
+            raise ValueError(f"--encoder {cfg.encoder} (NeWCRFs) has no TF graph "
+                             f"(model_flavor {cfg.resolved_flavor!r})")
+        return newcrfs.create_model(cfg)
     if cfg.bts_size < 128:
         raise ValueError(
             f"bts_size must be >= 128 (got {cfg.bts_size}): the reduction_1x1 "

@@ -32,7 +32,8 @@ graph; so a replay's outputs are only ever returned for the weights it was
 captured on. A graph keeps alive what it reads by address (the parameters
 and buffers it was captured on, the modules' cached tensors), so a replay
 on moved weights reads the old ones, never freed memory. ``train()``,
-``.to()`` and ``load_state_dict`` drop the graphs at once (``BTSModel``).
+``.to()`` and ``load_state_dict`` drop the graphs at once
+(``GraphedForward``, which ``BTSModel`` and ``NeWCRFsModel`` extend).
 
 Everything else runs eager: CPU and meta tensors, train mode or grad
 enabled (which also drop the held graphs, so that training does not hold
@@ -50,7 +51,8 @@ returned a replay's outputs; a capturing call replays too) and
 ``EAGER_FORWARDS`` (card forwards that ran eager); the hit share is
 REPLAYS / (REPLAYS + EAGER_FORWARDS). The spans ``bts/forward_capture`` and
 ``bts/forward_graph`` (the replay) name them in a profile. The kernels'
-launch counters (``ops/fused_dense_cuda``, ``ops/lpg_cuda``) count launches
+launch counters (``ops/fused_dense_cuda``, ``ops/lpg_cuda``,
+``ops/window_attention``) count launches
 that run: a capture runs nothing, and each replay adds the launches its
 capture recorded, also one whose outputs the state check then drops.
 
@@ -70,7 +72,7 @@ from torch import nn
 from torch.nn.modules import module as nn_module
 from torch.profiler import record_function
 
-from bts_tpu_torch.ops import fused_dense_cuda, lpg_cuda
+from bts_tpu_torch.ops import fused_dense_cuda, lpg_cuda, window_attention
 
 # Forwards in this process; each bumped in one place.
 CAPTURES = 0
@@ -81,7 +83,8 @@ KEEP = 2  # graphs held per module
 
 # The kernels' launch counters that a replay adds to.
 LAUNCH_COUNTERS = ((fused_dense_cuda, "TAPS_LAUNCHES"), (fused_dense_cuda, "EO_LAUNCHES"),
-                   (lpg_cuda, "LAUNCHES"), (lpg_cuda, "BWD_LAUNCHES"))
+                   (lpg_cuda, "LAUNCHES"), (lpg_cuda, "BWD_LAUNCHES"),
+                   (window_attention, "LAUNCHES"))
 
 _SETTINGS = (str, int, float, bool, type(None))
 _VERSION = operator.attrgetter("_version")
@@ -277,3 +280,27 @@ def drop_graphs(module: nn.Module, *_) -> None:
     """A ``load_state_dict`` post-hook: the module's graphs read the old
     weights' buffers."""
     module.forward_graphs.clear()
+
+
+class GraphedForward(nn.Module):
+    """A model whose ``forward(x, focal)`` runs ``self._forward`` through
+    ``ForwardGraphs``: an inference forward on a card replays a CUDA graph
+    of it from the second call of a call key on. ``train()``, ``.to()`` and
+    ``load_state_dict`` drop the held graphs."""
+
+    def __init__(self):
+        super().__init__()
+        self.forward_graphs = ForwardGraphs()
+        self.register_load_state_dict_post_hook(drop_graphs)
+
+    def forward(self, x: torch.Tensor, focal: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return self.forward_graphs(self, self._forward, x, focal)
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.forward_graphs.clear()
+        return super().train(mode)
+
+    def _apply(self, fn, recurse=True):
+        self.forward_graphs.clear()
+        return super()._apply(fn, recurse)

@@ -47,7 +47,7 @@ def make_sharded_forward(model: nn.Module, devices: Sequence, cfg: Optional[Conf
             x = image[i * k:(i + 1) * k].to(device, non_blocking=True)
             f = focal[i * k:(i + 1) * k].to(device, non_blocking=True)
             with compute_context(cfg, device):
-                out.append(replica(x, f)[4][:, 0].float())
+                out.append(replica(x, f)[-1][:, 0].float())
         return out
 
     return forward

@@ -104,7 +104,7 @@ def main(argv=None) -> list:
     args = parse(argv)
     device = resolve_device(args.device)
     cfg = bench_config(args)
-    model = create_model(cfg).to(device)
+    model = create_model(cfg, training=True).to(device)
     optimizer, _ = create_optimizer(cfg, model, num_total_steps=10_000)
     state = TrainState(model, optimizer)
     train_step = make_train_step(cfg)

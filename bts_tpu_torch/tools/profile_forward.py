@@ -5,7 +5,10 @@ weights, in the PT graph or (``--model_flavor tf``) the TF graph, under ``infere
 default) or float32 (``cli.test``'s default dtype; TF32 off in cuDNN and
 cuBLAS, so the plain convs are f32 too); at each batch the dense layers run
 in turns plain, ``--dense_impl`` (auto, the taps kernel, by default; or eo),
-twice, and plain. For each
+twice, and plain. ``--encoder large07`` profiles NeWCRFs instead (its
+eager forward, ``model._forward``, twice at each batch, so that the spans
+``newcrfs/encoder`` and ``newcrfs/decoder`` show; the device ms a forward
+of the kernels inside each is listed). For each
 run: ``torch.profiler`` over 3 forwards gives the kernels per forward, the
 device time per forward and its split by kind of kernel; the wall time per
 forward comes from 10 forwards without the profiler, host clock around work
@@ -30,6 +33,7 @@ from bts_tpu_torch.tools.benchtools import card
 # Kinds of kernel, by the first pattern found in the lower-cased name.
 KINDS = (
     ("fused dense", ("taps_sm90", "taps_f32")),  # both forms' kernels
+    ("window attention", ("window_attn",)),
     ("lpg", ("lpg_",)),
     ("cat", ("catarray", "cat_")),
     ("bn", ("batch_norm", "batchnorm", "bn_")),
@@ -38,6 +42,9 @@ KINDS = (
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ("pool", ("pool",)),
 )
+
+
+SPANS = ("newcrfs/",)  # record_function spans whose device ms a run lists
 
 
 def kind(name: str) -> str:
@@ -49,7 +56,12 @@ def kind(name: str) -> str:
 
 
 def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
-    model.encoder.dense_impl = dense_impl
+    """``dense_impl`` None: the model has no dense layers; its eager forward
+    is profiled."""
+    if dense_impl is None:
+        model = model._forward
+    else:
+        model.encoder.dense_impl = dense_impl
     with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
         for _ in range(3):
             model(x, focal)
@@ -64,11 +76,18 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
             model(x, focal)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / timed
-    kernels, device_us, by_kind, by_name = 0, 0.0, {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    kernels, device_us, by_kind, by_name, spans = 0, 0.0, {}, {}, {}
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # NeWCRFs's spans appear on the card too, as annotations around their kernels.
+    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_card
+              if e.name.startswith(SPANS)]
+    for e in on_card:
+        if e.name.startswith(SPANS):
             continue
         us = e.time_range.elapsed_us()
+        for name, start, end in ranges:
+            if start <= e.time_range.start < end:
+                spans[name] = spans.get(name, 0.0) + us / 1e3 / forwards
         device_us += us
         if not e.name.startswith(("Memcpy", "Memset")):
             kernels += 1
@@ -82,11 +101,14 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
         "device_ms": device_ms, "wall_ms": wall_ms, "idle": 1.0 - device_ms / wall_ms,
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
+        **({"spans_ms": spans} if spans else {}),
     }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--encoder", choices=("densenet161_bts", "large07"),
+                        default="densenet161_bts", help="BTS's DenseNet161, or NeWCRFs")
     parser.add_argument("--batches", type=int, nargs="+", default=[8, 1])
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     parser.add_argument("--dense_impl", choices=("auto", "eo"), default="auto",
@@ -106,15 +128,17 @@ def main(argv=None):
 
     smi = card(torch.device("cuda"))
     print(smi, flush=True)
-    cfg = Config(encoder="densenet161_bts", dataset="nyu", max_depth=10.0, bts_size=512,
+    cfg = Config(encoder=args.encoder, dataset="nyu", max_depth=10.0, bts_size=512,
                  model_flavor=args.model_flavor)
+    impls = ((None, None) if args.encoder == "large07"
+             else ("plain", args.dense_impl, args.dense_impl, "plain"))
     model = create_model(cfg).cuda().eval()
     gen = torch.Generator().manual_seed(1)
     runs = []
     for b in args.batches:
         x = torch.randn(b, 3, 480, 640, generator=gen).cuda()
         focal = torch.full((b,), 518.8579, device="cuda")
-        for dense_impl in ("plain", args.dense_impl, args.dense_impl, "plain"):
+        for dense_impl in impls:
             run = profile_run(model, x, focal, dense_impl, bf16)
             run["model_flavor"] = args.model_flavor
             run["device"] = smi

@@ -185,7 +185,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     device = torch.device(dp.device if dp is not None else (device or "cuda"))
     run_dir = snapshot_run(cfg) if cfg.log_directory and primary else ""
 
-    model = create_model(cfg)
+    model = create_model(cfg, training=True)
     say(f"Total number of parameters: {sum(p.numel() for p in model.parameters())}")
     if cfg.pretrained_model:
         warm_start(model, cfg.pretrained_model, cfg, verbose=primary)

@@ -258,8 +258,18 @@ Phases, in order; any failure raises and the script exits nonzero:
     them; a weight changed in place makes the call drop the stale replay's
     outputs and return the eager forward's; the host ms (until the call
     returns) and wall ms of an eager and a replayed call, with the card's
-    name and power limit.
-Each phase's seconds are printed as it ends, and as JSON after phase 15.
+    name and power limit;
+16. NeWCRFs (``--encoder large07``): the window-attention kernel
+    (``ops/window_attention.py``, Triton) against its plain version at each
+    of the 8 call shapes of a batch-8 480x640 forward, bf16 and f32, with
+    and without the shift mask (``WINDOW_ATTN_TOL``), its device ms beside
+    its bound, the plain version's and SDPA's (``library_ms``); the
+    published model, seeded, at NYU 480x640 batch 8 in bf16 against the
+    float32 reference (``tests/newcrfs_reference.py``, TF32 off); the
+    graph's replay bit for bit against the eager forward with 32 launches,
+    the graphs dropped on ``load_state_dict``; the forward's peak memory;
+    ``cli.test --encoder large07`` over 8 frames (``--save_lpg`` refused).
+Each phase's seconds are printed as it ends, and as JSON after phase 16.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps (a replayed forward's from
@@ -2447,6 +2457,198 @@ def phase15(torch, Config, create_model, counts, reset_counts, smi):
     return launches
 
 
+# Phase 16: NeWCRFs (--encoder large07). The window attention's calls of a
+# batch-8 480x640 forward: (label, windows, heads, nW of the shift mask),
+# each call twice a stage or level (unshifted, then shifted), 18 times in
+# Swin's third stage: 32 launches a forward.
+NEWCRFS_CALLS = [("swin stage 1", 3312, 6, 414), ("swin stage 2", 864, 12, 108),
+                 ("swin stage 3", 240, 24, 30), ("swin stage 4", 72, 48, 9),
+                 ("crf3", 72, 32, 9), ("crf2", 240, 16, 30), ("crf1", 864, 8, 108),
+                 ("crf0", 3312, 4, 414)]
+NEWCRFS_LAUNCHES = 32
+WINDOW_ATTN_SOURCE = "bts_tpu_torch/ops/window_attention.py (Triton)"
+# The kernel against its plain version at the same rounding points: bf16
+# outputs (ulp 2^-8 relative) may flip where the sums run in another order;
+# f32 products in full f32 (ieee) against PyTorch's, 49-term sums.
+WINDOW_ATTN_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2), "float32": dict(rtol=1e-4, atol=1e-5)}
+WINDOW_ATTN_PEAK = {"bfloat16": 989e12, "float32": 67e12}  # f32: FMAs, no tensor cores
+
+
+def window_attn_work(windows, heads, n_w, shifted, esize, n=49, d=32, window=7):
+    """(operations, bytes) of one call: QK^T and PV; q, k, v read and o
+    written once in the dtype, the f32 bias table, the int64 index and the
+    f32 mask once."""
+    ops = 2 * 2 * windows * heads * n * n * d
+    table = (2 * window - 1) ** 2 * heads * 4
+    nbytes = esize * 4 * windows * heads * n * d + table + n * n * 8 + (
+        n_w * n * n * 4 if shifted else 0)
+    return ops, nbytes
+
+
+def phase16(torch, Config, create_model, smi):
+    """Phase 16, NeWCRFs (``models/newcrfs.py``, ``ops/window_attention.py``):
+    (a) the window-attention kernel against its plain version at each of
+    NEWCRFS_CALLS, bf16 and f32, with and without the shift mask, q, k and v
+    as the model hands them (views of one qkv buffer); its device ms beside
+    its bound, the plain version's and SDPA's (``library_ms``; the port
+    never calls it); (b) the published ``large07`` at NYU 480x640, batch 8,
+    seeded: the bf16 program's depth (graph replay, inference mode) against
+    the float32 reference (``tests/newcrfs_reference.py``, TF32 off); (c)
+    the replay bit-equal to the eager forward, 32 launches a replay, the
+    graphs dropped on ``load_state_dict``; eager and replay ms and img/s;
+    (d) the forward's peak memory; (e) ``cli.test --encoder large07`` over 8
+    NYU frames in bf16 at batch 8: 8 pngs, 32 launches a forward, and
+    ``--save_lpg`` refused. Returns the kernel's record."""
+    import torch.nn.functional as F
+
+    from bts_tpu_torch.cli import test as cli_test
+    from bts_tpu_torch.models.encoders.swin import relative_position_index, shift_mask
+    from bts_tpu_torch.ops import window_attention as wa
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import newcrfs_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    index = relative_position_index(7).cuda()
+    calls = {}
+    for label, windows, heads, n_w in NEWCRFS_CALLS:
+        hp, wp = {414: (126, 161), 108: (63, 84), 30: (35, 42), 9: (21, 21)}[n_w]
+        mask = shift_mask(hp, wp, 7, 3, "cuda")
+        table = 0.02 * torch.randn(169, heads, device="cuda", generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            qkv = torch.randn(windows, 49, 3, heads, 32, device="cuda", generator=gen).to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            for m in (None, mask):
+                got = wa.window_attention_triton(q, k, v, table, index, m, 32 ** -0.5)
+                want = wa.window_attention_reference(q, k, v, table, index, m, 32 ** -0.5)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(got.float(), want.float(), **WINDOW_ATTN_TOL[name])
+            ms = cuda_median_ms(lambda: wa.window_attention_triton(q, k, v, table, index, mask,
+                                                                   32 ** -0.5), samples=20)
+            plain_ms = cuda_median_ms(lambda: wa.window_attention_reference(
+                q, k, v, table, index, mask, 32 ** -0.5), samples=5, reps=2)
+            bias = table[index.view(-1)].view(49, 49, heads).permute(2, 0, 1)
+            full = (bias[None] + mask[:, None]).to(dtype)  # (nW, heads, N, N)
+
+            per = [t.reshape(windows // n_w, n_w, 49, heads, 32).permute(0, 1, 3, 2, 4)
+                   for t in (q, k, v)]
+            library_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
+                *per, attn_mask=full, scale=32 ** -0.5), samples=10)
+            ops, nbytes = window_attn_work(windows, heads, n_w, True, qkv.element_size())
+            t_ops = ops / WINDOW_ATTN_PEAK[name] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            calls[f"{label} {name}"] = {
+                "windows": windows, "heads": heads, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "roofline_pct": 100 * bound / ms}
+            print(f"window attention {label} ({windows} windows x {heads} heads) {name}: "
+                  f"max abs err {err!r}; {ms!r} ms (shifted), bound {bound!r} ms "
+                  f"({calls[f'{label} {name}']['bound_by']}, {100 * bound / ms:.1f}%), plain "
+                  f"{plain_ms!r} ms, SDPA {library_ms!r} ms ({smi})", flush=True)
+            del qkv, q, k, v, got, want, full, per
+
+    # (b)-(d) the published model, seeded, NYU 480x640 at batch 8.
+    cfg = Config(encoder="large07", dataset="nyu", max_depth=10.0, seed=16)
+    model = create_model(cfg).cuda().eval()
+    params = sum(p.numel() for p in model.parameters())
+    x = torch.randn(8, 3, 480, 640, device="cuda", generator=gen)
+    x2 = torch.randn(8, 3, 480, 640, device="cuda", generator=gen)
+    focal = torch.full((8,), 518.8579, device="cuda")
+    with torch_defaults(torch):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            before = wa.LAUNCHES
+            eager, = model._forward(x, focal)
+            torch.cuda.synchronize()
+            eager_launches = wa.LAUNCHES - before
+            model(x, focal), model(x, focal)  # eager, then the capture and its replay
+            before = wa.LAUNCHES
+            replay, = model(x, focal)
+            torch.cuda.synchronize()
+            replay_launches = wa.LAUNCHES - before
+            peak = torch.cuda.max_memory_allocated()
+            eager_ms = call_ms(torch, lambda: model._forward(x2, focal), calls=5)
+            replay_ms = call_ms(torch, lambda: model(x2, focal), calls=10)
+        if (eager_launches, replay_launches) != (NEWCRFS_LAUNCHES, NEWCRFS_LAUNCHES):
+            raise RuntimeError(f"large07: {eager_launches} window-attention launches eager, "
+                               f"{replay_launches} a replay, expected {NEWCRFS_LAUNCHES}")
+        if not torch.equal(replay, eager):
+            raise RuntimeError(f"large07: the replay is {largest_gap(torch, [replay], [eager])} "
+                               "from the eager forward")
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                               "configs", "newcrfs-nyu-swinl07.json")) as f:
+            ref = newcrfs_reference.NeWCRFs(json.load(f)).cuda().eval()
+        ref.load_state_dict(model.state_dict())
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            want = torch.cat([ref(x[i:i + 2], focal[i:i + 2]) for i in range(0, 8, 2)])
+        torch.backends.cudnn.allow_tf32 = True
+        gap = (replay - want).abs()
+        absrel, max_m = (gap / want).mean().item(), gap.max().item()
+        del ref, want
+        if absrel > 0.01 or max_m > 1.0:
+            raise RuntimeError(f"large07 bf16 against the f32 reference: absrel {absrel}, "
+                               f"max {max_m} m")
+        # New weights: the graphs go at once; the new replay matches its eager forward.
+        model.load_state_dict(create_model(cfg.replace(seed=17)).state_dict())
+        if model.forward_graphs.graphs:
+            raise RuntimeError("large07: load_state_dict left graphs held")
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model(x, focal), model(x, focal)
+            new, = model(x, focal)
+            new_eager, = model._forward(x, focal)
+        if not torch.equal(new, new_eager) or torch.equal(new, replay):
+            raise RuntimeError("large07: after load_state_dict the replay is not the new "
+                               "weights' eager forward")
+    print(f"large07 ({params} parameters) NYU 480x640 b8 bf16 against the f32 reference: "
+          f"depth absrel {absrel!r}, max {max_m!r} m; replay bit-equal to eager, "
+          f"{replay_launches} window-attention launches a replay; ms a batch eager "
+          f"{eager_ms[1]!r}, replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.1f} img/s); "
+          f"peak {peak} bytes ({smi})", flush=True)
+    del model, x, x2, eager, replay, new, new_eager
+    torch.cuda.empty_cache()
+
+    # (e) cli.test --encoder large07.
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = write_nyu_frames(os.path.join(tmp, "data"), 8)
+        argv = ["--encoder", "large07", "--dataset", "nyu", "--max_depth", "10",
+                "--input_height", "480", "--input_width", "640", "--compute_dtype", "bfloat16",
+                "--eval_batch_size", "8", "--data_path", os.path.join(tmp, "data"),
+                "--filenames_file", manifest, "--model_name", "newcrfs"]
+        os.chdir(tmp)
+        try:
+            try:
+                cli_test.main(argv + ["--save_lpg"])
+                raise RuntimeError("cli.test --encoder large07 --save_lpg ran")
+            except ValueError as err:
+                print(f"cli.test --encoder large07 --save_lpg refused: {err}")
+            before = wa.LAUNCHES
+            if cli_test.main(argv) != 0:
+                raise RuntimeError("cli.test --encoder large07 failed")
+            torch.cuda.synchronize()
+            launched = wa.LAUNCHES - before
+        finally:
+            os.chdir(cwd)
+        check_pngs(os.path.join(tmp, "result_newcrfs", "raw"), 8, (480, 640), np.uint16)
+    if launched != NEWCRFS_LAUNCHES:
+        raise RuntimeError(f"cli.test --encoder large07: {launched} launches, expected "
+                           f"{NEWCRFS_LAUNCHES} (one forward)")
+    print(f"cli.test --encoder large07: 8 uint16 pngs, {launched} window-attention launches")
+    record = {"name": "window_attention", "route": "triton", "source": WINDOW_ATTN_SOURCE,
+              "replaces": None, "launches_per_forward": NEWCRFS_LAUNCHES, "calls": calls,
+              "model": {"parameters": params, "depth_absrel": absrel, "depth_max_m": max_m,
+                        "eager_ms": eager_ms[1], "replay_ms": replay_ms[1],
+                        "peak_bytes": peak}, "device": smi}
+    print(json.dumps({"window_attention": record}))
+    return record
+
+
+
 def main():
     import torch
 
@@ -3232,6 +3434,8 @@ def main():
                              make_train_step, counts, reset_counts, smi)
     phase("15 the graphed inference forward: replays against eager, launches, new weights, ms")
     phase15(torch, Config, create_model, counts, reset_counts, smi)
+    phase("16 NeWCRFs: the window-attention kernel, large07 against its reference, cli.test")
+    window_attn = phase16(torch, Config, create_model, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -3307,6 +3511,7 @@ def main():
         dense_record("taps", "float32", f32_path["taps"], 1),
         dense_record("eo", "bfloat16", eo_path, 1),
         dense_record("eo", "float32", f32_path["eo"], 1),
+        window_attn,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,264 @@
+"""NeWCRFs (``--encoder large07``) on the CPU at a tiny size (Swin embed 32,
+depths 2/2/2/2, heads 1/2/4/8, CRF dims 64/128/256/512 so that each level
+projects the encoder's map as ``large07``'s do, head dim 32, a 64-channel
+PSP, 64x96 frames: token maps of 16x24 down to 2x3, so every block pads and
+the shifted ones mask), held to the plain float32 reference
+(``tests/newcrfs_reference.py``) on seeded weights; the window attention's
+plain version against an einsum; a checkpoint in upstream's layout through
+``load_weights``; ``cli.test`` with a one-output model; training refused."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import newcrfs_reference
+from bts_tpu_torch.cli import test as cli_test
+from bts_tpu_torch.cli import train as cli_train
+from bts_tpu_torch.config import Config
+from bts_tpu_torch.models import bts, graphed, newcrfs
+from bts_tpu_torch.models.convert import load_weights
+from bts_tpu_torch.models.encoders import swin
+from bts_tpu_torch.ops import window_attention as wa
+from bts_tpu_torch.parallel.mesh import wrap_data_parallel
+
+from torch_threads import one_thread  # noqa: F401 (fixture)
+
+TINY = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8),
+            crf_dims=(64, 128, 256, 512), crf_heads=(2, 4, 8, 16), psp_channels=64, psp_groups=32)
+REFERENCE = {
+    "max_depth": 10.0,
+    "backbone": {"embed_dim": 32, "depths": [2, 2, 2, 2], "num_heads": [1, 2, 4, 8],
+                 "window_size": 7, "mlp_ratio": 4.0, "patch_size": 4},
+    "decoder": {"pool_scales": [1, 2, 3, 6], "channels": 64, "ppm_groups": 32,
+                "crf_dims": [64, 128, 256, 512], "crf_heads": [2, 4, 8, 16],
+                "v_dims": [32, 64, 128, 64], "crf_window": 7, "crf_depth": 2},
+}
+H, W = 64, 96
+LEVELS = ("backbone", "decoder", "crf3", "crf2", "crf1", "crf0")
+# Both sides are float32 on the CPU and compute the same equations in
+# another order (the scale on the scores or on q, the bias added before or
+# after, PixelShuffle on other strides): measured gaps are about 4e-6, so
+# 1e-4 leaves 25x room, and each mutation below moves the depth by far more.
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """The reference's state dict with seeded weights away from init:
+    Xavier-scale matrices, norms and biases off identity, bias tables of
+    std 0.2, BatchNorm statistics drawn."""
+    ref = newcrfs_reference.NeWCRFs(REFERENCE)
+    gen = torch.Generator().manual_seed(20)
+    state = {}
+    for k, v in ref.state_dict().items():
+        if k.endswith("relative_position_index") or k.endswith("num_batches_tracked"):
+            state[k] = v
+        elif k.endswith("relative_position_bias_table"):
+            state[k] = 0.2 * torch.randn(v.shape, generator=gen)
+        elif k.endswith("running_var"):
+            state[k] = torch.rand(v.shape, generator=gen) + 0.5
+        elif v.dim() >= 2:
+            fan = v.shape[0] + v.shape[1] * (v[0, 0].numel() if v.dim() > 2 else 1)
+            state[k] = torch.randn(v.shape, generator=gen) * (2.0 / fan) ** 0.5
+        else:
+            base = 1.0 if k.endswith("weight") and "running" not in k else 0.0
+            state[k] = base + 0.1 * torch.randn(v.shape, generator=gen)
+    return state
+
+
+@pytest.fixture(scope="module")
+def image():
+    return torch.randn(2, 3, H, W, generator=torch.Generator().manual_seed(0))
+
+
+def models(state):
+    ref = newcrfs_reference.NeWCRFs(REFERENCE).eval()
+    ref.load_state_dict(state, strict=True)
+    port = newcrfs.NeWCRFsModel(10.0, **TINY).eval()
+    port.load_state_dict(state, strict=True)
+    return ref, port
+
+
+def outputs(model, x):
+    """Each level's output and the depth map."""
+    got = {}
+    hooks = [model.get_submodule(n).register_forward_hook(
+        lambda m, i, o, n=n: got.__setitem__(n, o)) for n in LEVELS]
+    with torch.no_grad():
+        out = model(x, torch.full((x.shape[0],), 518.8579))
+    for h in hooks:
+        h.remove()
+    got["depth"] = out[-1] if isinstance(out, tuple) else out
+    return got
+
+
+def test_state_dict_names_are_the_references():
+    ref = newcrfs_reference.NeWCRFs(REFERENCE).state_dict()
+    port = newcrfs.NeWCRFsModel(10.0, **TINY).state_dict()
+    assert list(port) == list(ref)
+    assert all(port[k].shape == ref[k].shape for k in ref)
+    # The published version's names too, checked on the meta device.
+    with torch.device("meta"):
+        big = newcrfs.NeWCRFsModel(10.0, **newcrfs.VERSIONS["large07"])
+        config = dict(REFERENCE, backbone=dict(REFERENCE["backbone"], embed_dim=192,
+                                               depths=[2, 2, 18, 2], num_heads=[6, 12, 24, 48]),
+                      decoder=dict(REFERENCE["decoder"], channels=512, ppm_groups=256,
+                                   crf_dims=[128, 256, 512, 1024], crf_heads=[4, 8, 16, 32],
+                                   v_dims=[64, 128, 256, 512]))
+        big_ref = newcrfs_reference.NeWCRFs(config)
+    assert {k: v.shape for k, v in big.state_dict().items()} == {
+        k: v.shape for k, v in big_ref.state_dict().items()}
+    assert sum(p.numel() for p in big.parameters()) == 270_444_877
+
+
+def test_depth_and_levels_match_reference(weights, image):
+    ref, port = models(weights)
+    want, got = outputs(ref, image), outputs(port, image)
+    for name in LEVELS:
+        for w, g in zip(*(v if isinstance(v, (list, tuple)) else [v] for v in (want[name],
+                                                                              got[name]))):
+            torch.testing.assert_close(g, w, **TOL, msg=name)
+    depth = got["depth"]
+    assert depth.shape == (2, 1, H, W) and depth.dtype == torch.float32
+    torch.testing.assert_close(depth, want["depth"], **TOL)
+    assert 0 < depth.min() and depth.max() < 10.0
+
+
+@pytest.mark.parametrize("mutation", ["mask dropped", "bias dropped", "V from x"])
+def test_mutations_depart_from_reference(weights, image, monkeypatch, mutation):
+    """Each part of the attention that the equations name moves the depth
+    beyond the tolerance above: a port without it fails the test before."""
+    ref, port = models(weights)
+    want = outputs(ref, image)["depth"]
+    real_mask, real_attention = swin.shift_mask, wa.window_attention
+    if mutation == "mask dropped":
+        def fake_mask(*a):
+            return torch.zeros_like(real_mask(*a))
+
+        monkeypatch.setattr(swin, "shift_mask", fake_mask)
+        monkeypatch.setattr(newcrfs, "shift_mask", fake_mask)
+    else:
+        def fake_attention(q, k, v, table, index, mask, scale):
+            if mutation == "bias dropped":
+                table = torch.zeros_like(table)
+            else:
+                v = k
+            return real_attention(q, k, v, table, index, mask, scale)
+
+        monkeypatch.setattr(swin, "window_attention", fake_attention)
+        monkeypatch.setattr(newcrfs, "window_attention", fake_attention)
+        if mutation == "V from x":  # only the CRF levels take V from elsewhere
+            monkeypatch.setattr(swin, "window_attention", real_attention)
+    got = outputs(port, image)["depth"]
+    assert (got - want).abs().max() > 10 * TOL["atol"]
+
+
+def einsum_attention(q, k, v, table, index, mask, scale):
+    """The window attention written out with einsum over (w, n, h, d)."""
+    windows, n, heads, _ = q.shape
+    s = torch.einsum("wihd,wjhd->whij", q.double(), k.double()) * scale
+    s = s + table.double()[index].permute(2, 0, 1)[None]
+    if mask is not None:
+        s = s + mask.double().repeat(windows // mask.shape[0], 1, 1)[:, None]
+    return torch.einsum("whij,wjhd->wihd", s.softmax(-1), v.double()).reshape(windows, n, -1)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_plain_matches_einsum(masked):
+    gen = torch.Generator().manual_seed(3)
+    windows, n_w, heads, d = 12, 6, 3, 32
+    qkv = torch.randn(windows, 49, 3, heads, d, generator=gen)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views, as Swin hands them
+    table = torch.randn(169, heads, generator=gen)
+    index = swin.relative_position_index(7)
+    mask = swin.shift_mask(14, 21, 7, 3, "cpu") if masked else None
+    assert mask is None or mask.shape == (n_w, 49, 49)
+    got = wa.window_attention(q, k, v, table, index, mask, d ** -0.5)
+    want = einsum_attention(q, k, v, table, index, mask, d ** -0.5)
+    assert got.shape == (windows, 49, heads * d) and got.dtype == torch.float32
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    low = wa.window_attention(*(t.bfloat16() for t in (q, k, v)), table, index, mask, d ** -0.5)
+    assert low.dtype == torch.bfloat16
+    torch.testing.assert_close(low.double(), want, rtol=0.05, atol=0.05)
+    with pytest.raises(ValueError, match="CUDA"):
+        wa.window_attention_triton(q, k, v, table, index, mask, d ** -0.5)
+
+
+def test_shift_mask_is_swins():
+    for h, w in ((2, 3), (16, 24), (7, 14)):
+        want = newcrfs_reference.attention_mask(h, w, 7, 3, "cpu")
+        hp, wp = -(-h // 7) * 7, -(-w // 7) * 7
+        assert torch.equal(swin.shift_mask(hp, wp, 7, 3, "cpu"), want)
+
+
+def test_kernel_launches_are_counted_by_replays():
+    assert (wa, "LAUNCHES") in graphed.LAUNCH_COUNTERS
+
+
+def test_upstream_checkpoint_loads(weights, image, tmp_path):
+    """A save in upstream's layout: {"model": state_dict} with
+    DataParallel's ``module.`` prefix, through ``load_weights``."""
+    path = tmp_path / "newcrfs.ckpt"
+    torch.save({"model": {f"module.{k}": v for k, v in weights.items()}, "optimizer": {}},
+               path)
+    port = newcrfs.NeWCRFsModel(10.0, **TINY).eval()
+    port.load_state_dict(load_weights(str(path), port, Config(encoder="large07")), strict=True)
+    _, want = models(weights)
+    torch.testing.assert_close(outputs(port, image)["depth"], outputs(want, image)["depth"],
+                               rtol=0, atol=0)
+
+
+@pytest.fixture
+def nyu_frames(tmp_path):
+    """Three synthetic NYU frames of 60x90 (padded to 64x96 and cropped back)."""
+    scene = tmp_path / "data" / "kitchen_0001"
+    scene.mkdir(parents=True)
+    rng = np.random.default_rng(5)
+    lines = []
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 255, (60, 90, 3), dtype=np.uint8)).save(
+            scene / f"rgb_{i:05d}.jpg")
+        Image.fromarray(rng.integers(500, 9000, (60, 90), dtype=np.uint16)).save(
+            scene / f"sync_depth_{i:05d}.png")
+        lines.append(f"kitchen_0001/rgb_{i:05d}.jpg kitchen_0001/sync_depth_{i:05d}.png 518.8579")
+    (tmp_path / "data" / "files.txt").write_text("\n".join(lines) + "\n")
+    return tmp_path / "data"
+
+
+def test_cli_test_dumps_large07(nyu_frames, tmp_path, monkeypatch):
+    """``cli.test --encoder large07`` through ``run_predictions`` (the tiny
+    widths under the version's name): depth pngs from a model with one
+    output, and ``--save_lpg`` refused before the model is built."""
+    monkeypatch.setitem(newcrfs.VERSIONS, "large07", TINY)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--encoder", "large07", "--dataset", "nyu", "--max_depth", "10",
+            "--data_path", str(nyu_frames), "--filenames_file", str(nyu_frames / "files.txt"),
+            "--eval_batch_size", "2", "--model_name", "tiny", "--device", "cpu"]
+    with pytest.raises(ValueError, match="save_lpg"):
+        cli_test.main(argv + ["--save_lpg"])
+    assert cli_test.main(argv) == 0
+    names = sorted(os.listdir(tmp_path / "result_tiny" / "raw"))
+    assert names == [f"kitchen_0001_rgb_{i:05d}.png" for i in range(3)]
+    model = bts.create_model(Config(encoder="large07", max_depth=10.0)).eval()
+    x = torch.from_numpy(np.zeros((1, 60, 90, 3), np.float32)).permute(0, 3, 1, 2)
+    assert isinstance(model, newcrfs.NeWCRFsModel) and len(model(
+        torch.nn.functional.pad(x, (0, 6, 0, 4)), torch.ones(1))) == 1
+    for name in names:
+        a = np.asarray(Image.open(tmp_path / "result_tiny" / "raw" / name))
+        assert a.dtype == np.uint16 and a.shape == (60, 90) and 0 < a.min() and a.max() < 10000
+
+
+def test_training_is_refused(monkeypatch):
+    monkeypatch.setitem(newcrfs.VERSIONS, "large07", TINY)
+    cfg = Config(encoder="large07")
+    with pytest.raises(ValueError, match="served, not trained"):
+        bts.create_model(cfg, training=True)
+    with pytest.raises(ValueError, match="served, not trained"):
+        cli_train.main(["--encoder", "large07", "--device", "cpu"])
+    with pytest.raises(ValueError, match="served, not trained"):
+        wrap_data_parallel(bts.create_model(cfg), None)
+    with pytest.raises(ValueError, match="TF graph"):
+        bts.create_model(cfg.replace(model_flavor="tf"))
