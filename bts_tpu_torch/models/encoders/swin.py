@@ -6,16 +6,23 @@ helpers that its CRF decoder shares (``models/newcrfs.py``).
 Module names follow upstream's (``patch_embed``, ``layers.<i>.blocks.<j>``,
 ``layers.<i>.downsample``, ``norm0`` ... ``norm3``), so a published
 checkpoint's ``backbone.*`` keys load as they are, the
-``relative_position_index`` buffers among them. A block:
+``relative_position_index`` buffers among them. A block, as upstream
+computes it:
 
 - ``x̂ = norm1(x)``, padded with zeros at the bottom and right to window
   multiples Hp x Wp (the zeros take part as keys, unmasked, as upstream's);
 - odd blocks roll x̂ by (-shift, -shift), shift = window // 2, and mask the
   pairs of tokens that the roll brought together (-100, Swin's mask over
   Hp x Wp, ``shift_mask``);
-- window attention (``ops/window_attention``: the kernel on a card) with a
-  relative-position bias, then ``proj``; the roll undone and the padding
-  cut off; ``x = x + attn``; ``x = x + MLP(norm2(x))`` (GELU).
+- window attention with a relative-position bias, then ``proj``; the roll
+  undone and the padding cut off; ``x = x + attn``; ``x = x + MLP(norm2(x))``
+  (GELU).
+
+The port makes no padded, rolled or windowed copy: ``qkv`` and ``proj``
+act token by token, so they run on the h*w tokens, and
+``ops/window_attention`` (the kernel on a card) reads each window's tokens
+from the grid, gives a padded token the K and V that ``qkv`` makes of zeros
+(its bias), and writes each output row back to its token.
 
 Patch embedding is a 4x4/4 convolution and a LayerNorm; patch merging
 gathers each 2x2 block of tokens (LayerNorm(4C), Linear(4C, 2C) without
@@ -31,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bts_tpu_torch.ops.window_attention import window_attention
+from bts_tpu_torch.ops.window_attention import padded_grid, window_attention
 
 MASKED = -100.0  # Swin's additive mask for tokens the cyclic shift brought together
 PATCH = 4  # the patch embedding's kernel and stride
@@ -52,35 +59,6 @@ def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x.reshape(b, h // window, window, w // window, window, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
-
-
-def window_reverse(windows: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
-    """(B * h/w * w/w, w*w, C) -> (B, h, w, C)."""
-    c = windows.shape[-1]
-    x = windows.view(-1, h // window, w // window, window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, h, w, c)
-
-
-def pad_to_windows(x: torch.Tensor, window: int) -> torch.Tensor:
-    """(B, H, W, C) padded with zeros at the bottom and right to window multiples."""
-    h, w = x.shape[1:3]
-    return F.pad(x, (0, 0, 0, (-w) % window, 0, (-h) % window))
-
-
-def to_windows(x: torch.Tensor, window: int, shift: int) -> torch.Tensor:
-    """(B, Hp, Wp, C), rolled by (-shift, -shift), -> windows (``window_partition``)."""
-    if shift:
-        x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
-    return window_partition(x, window)
-
-
-def from_windows(windows: torch.Tensor, window: int, hp: int, wp: int, shift: int,
-                 h: int, w: int) -> torch.Tensor:
-    """``to_windows`` undone, cropped to (B, h, w, C)."""
-    x = window_reverse(windows, window, hp, wp)
-    if shift:
-        x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
-    return x[:, :h, :w]
 
 
 def _shift_mask(hp: int, wp: int, window: int, shift: int, device) -> torch.Tensor:
@@ -128,7 +106,7 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, window: int, num_heads: int):
         super().__init__()
-        self.num_heads = num_heads
+        self.window, self.num_heads = window, num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
@@ -136,31 +114,31 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
-        windows, n, c = x.shape
-        qkv = self.qkv(x).view(windows, n, 3, self.num_heads, c // self.num_heads)
-        out = window_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+    def forward(self, x: torch.Tensor, h: int, w: int, shift: int, mask=None) -> torch.Tensor:
+        """x (B, h*w, C) normed tokens -> (B, h*w, C); windows of the grid
+        rolled by (-shift, -shift), ``mask`` over its padded Hp x Wp."""
+        b, _, c = x.shape
+        heads = self.num_heads
+        qkv = self.qkv(x).view(b, h, w, 3, heads, c // heads)
+        _, k_pad, v_pad = self.qkv.bias.view(3, c)
+        out = window_attention(qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :],
                                self.relative_position_bias_table,
-                               self.relative_position_index, mask, self.scale)
+                               self.relative_position_index, mask, self.scale, self.window,
+                               shift, k_pad, v_pad)
         return self.proj(out)
 
 
 class SwinTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int):
         super().__init__()
-        self.window, self.shift = window, shift
+        self.shift = shift
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, window, num_heads)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, MLP_RATIO * dim)
 
     def forward(self, x: torch.Tensor, h: int, w: int, mask: torch.Tensor) -> torch.Tensor:
-        b, _, c = x.shape
-        y = pad_to_windows(self.norm1(x).view(b, h, w, c), self.window)
-        hp, wp = y.shape[1:3]
-        y = self.attn(to_windows(y, self.window, self.shift), mask if self.shift else None)
-        y = from_windows(y, self.window, hp, wp, self.shift, h, w).reshape(b, h * w, c)
-        x = x + y
+        x = x + self.attn(self.norm1(x), h, w, self.shift, mask if self.shift else None)
         return x + self.mlp(self.norm2(x))
 
 
@@ -194,7 +172,7 @@ class BasicLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, h: int, w: int):
         """-> (the stage's tokens (B, h*w, C), the next stage's tokens, its h, w)."""
-        hp, wp = -(-h // self.window) * self.window, -(-w // self.window) * self.window
+        hp, wp = padded_grid(h, w, self.window)
         mask = shift_mask(hp, wp, self.window, self.window // 2, x.device)
         for blk in self.blocks:
             x = blk(x, h, w, mask)

@@ -23,7 +23,11 @@ name; ``large07`` is Swin-L with 7x7 windows.
   Q, K = ``qk(x̂)``; V is the level's projected prediction, padded, rolled
   and windowed as x̂, without a norm; the window attention with Swin's
   relative-position bias and shift mask, then ``proj``; ``x = x + attn``;
-  ``x = x + MLP(norm2(x))``. V is the same for both blocks.
+  ``x = x + MLP(norm2(x))``. V is the same for both blocks. As in Swin's
+  blocks (``encoders/swin.py``), the port makes no padded, rolled or
+  windowed copy: the attention reads the grid, a padded token's K is
+  ``qk``'s bias and its V zero, and V is laid out (B, h, w, C) once a
+  level.
 - Between levels PixelShuffle(2); ``disp_head1`` is Conv3x3(dim0 -> 1), a
   sigmoid (in float32) and a bilinear x4 resize; depth = that * max_depth.
 
@@ -46,11 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
-from bts_tpu_torch.models.encoders.swin import (Mlp, SwinTransformer, from_windows,
-                                                pad_to_windows, relative_position_index,
-                                                shift_mask, to_windows)
+from bts_tpu_torch.models.encoders.swin import (Mlp, SwinTransformer, relative_position_index,
+                                                shift_mask)
 from bts_tpu_torch.models.graphed import GraphedForward
-from bts_tpu_torch.ops.window_attention import window_attention
+from bts_tpu_torch.ops.window_attention import padded_grid, window_attention
 
 # Upstream's --encoder names and their widths (NewCRFDepth.__init__).
 VERSIONS = {
@@ -69,7 +72,7 @@ class CRFWindowAttention(nn.Module):
 
     def __init__(self, dim: int, window: int, num_heads: int):
         super().__init__()
-        self.num_heads = num_heads
+        self.window, self.num_heads = window, num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
@@ -77,20 +80,24 @@ class CRFWindowAttention(nn.Module):
         self.qk = nn.Linear(dim, 2 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, v: torch.Tensor, mask=None) -> torch.Tensor:
-        windows, n, c = x.shape
+    def forward(self, x: torch.Tensor, v: torch.Tensor, h: int, w: int, shift: int,
+                mask=None) -> torch.Tensor:
+        """x (B, h*w, C) normed tokens, v (B, h, w, C) -> (B, h*w, C)."""
+        b, _, c = x.shape
         heads = self.num_heads
-        qk = self.qk(x).view(windows, n, 2, heads, c // heads)
-        out = window_attention(qk[:, :, 0], qk[:, :, 1], v.view(windows, n, heads, c // heads),
+        qk = self.qk(x).view(b, h, w, 2, heads, c // heads)
+        k_pad = self.qk.bias.view(2, c)[1]
+        out = window_attention(qk[..., 0, :, :], qk[..., 1, :, :], v.view(b, h, w, heads, -1),
                                self.relative_position_bias_table,
-                               self.relative_position_index, mask, self.scale)
+                               self.relative_position_index, mask, self.scale, self.window,
+                               shift, k_pad, None)
         return self.proj(out)
 
 
 class CRFBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int):
         super().__init__()
-        self.window, self.shift = window, shift
+        self.shift = shift
         self.norm1 = nn.LayerNorm(dim)
         self.attn = CRFWindowAttention(dim, window, num_heads)
         self.norm2 = nn.LayerNorm(dim)
@@ -99,13 +106,7 @@ class CRFBlock(nn.Module):
     def forward(self, x: torch.Tensor, v: torch.Tensor, h: int, w: int,
                 mask: torch.Tensor) -> torch.Tensor:
         """x (B, h*w, C) tokens, v (B, h, w, C) the projected prediction."""
-        b, _, c = x.shape
-        xs = pad_to_windows(self.norm1(x).view(b, h, w, c), self.window)
-        hp, wp = xs.shape[1:3]
-        vs = to_windows(pad_to_windows(v, self.window), self.window, self.shift)
-        y = self.attn(to_windows(xs, self.window, self.shift), vs, mask if self.shift else None)
-        y = from_windows(y, self.window, hp, wp, self.shift, h, w).reshape(b, h * w, c)
-        x = x + y
+        x = x + self.attn(self.norm1(x), v, h, w, self.shift, mask if self.shift else None)
         return x + self.mlp(self.norm2(x))
 
 
@@ -118,7 +119,7 @@ class BasicCRFLayer(nn.Module):
             for i in range(depth)])
 
     def forward(self, x: torch.Tensor, v: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        hp, wp = -(-h // self.window) * self.window, -(-w // self.window) * self.window
+        hp, wp = padded_grid(h, w, self.window)
         mask = shift_mask(hp, wp, self.window, self.window // 2, x.device)
         for blk in self.blocks:
             x = blk(x, v, h, w, mask)
@@ -144,7 +145,8 @@ class NewCRF(nn.Module):
         if self.proj_v is not None:
             v = self.proj_v(v)
         b, c, h, w = x.shape
-        x = self.crf_layer(x.flatten(2).transpose(1, 2), v.permute(0, 2, 3, 1), h, w)
+        v = v.permute(0, 2, 3, 1).contiguous()  # the attention reads V's channels contiguous
+        x = self.crf_layer(x.flatten(2).transpose(1, 2), v, h, w)
         return self.norm_crf(x).view(b, h, w, c).permute(0, 3, 1, 2)
 
 

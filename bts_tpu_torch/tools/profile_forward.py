@@ -5,17 +5,19 @@ weights, in the PT graph or (``--model_flavor tf``) the TF graph, under ``infere
 default) or float32 (``cli.test``'s default dtype; TF32 off in cuDNN and
 cuBLAS, so the plain convs are f32 too); at each batch the dense layers run
 in turns plain, ``--dense_impl`` (auto, the taps kernel, by default; or eo),
-twice, and plain. ``--encoder large07`` profiles NeWCRFs instead (its
-eager forward, ``model._forward``, twice at each batch, so that the spans
+twice, and plain. ``--encoder large07`` profiles NeWCRFs instead, at each
+batch in turns its eager forward (``model._forward``, so that the spans
 ``newcrfs/encoder`` and ``newcrfs/decoder`` show; the device ms a forward
-of the kernels inside each is listed). For each
+of the kernels inside each is listed), its replayed forward twice, and the
+eager forward. For each
 run: ``torch.profiler`` over 3 forwards gives the kernels per forward, the
+launches of each kernel name per forward (``launches``), the
 device time per forward and its split by kind of kernel; the wall time per
 forward comes from 10 forwards without the profiler, host clock around work
 that ends in a synchronise. Idle is 1 - device time / wall time; the 12
 kernels that take the most device time are listed by name. Prints one
-line per run and writes them as JSON to ``--out``
-(``build/profile_forward.json`` by default).
+line per run, writes them as JSON to ``--out``
+(``build/profile_forward.json`` by default) and returns them.
 Needs a CUDA card.
 """
 
@@ -44,7 +46,9 @@ KINDS = (
 )
 
 
-SPANS = ("newcrfs/",)  # record_function spans whose device ms a run lists
+# record_function spans whose device ms a run lists: NeWCRFs's halves, and
+# the graph's replay (``bts/forward_graph``) around a replayed forward's kernels.
+SPANS = ("newcrfs/", "bts/")
 
 
 def kind(name: str) -> str:
@@ -55,13 +59,14 @@ def kind(name: str) -> str:
     return "other"
 
 
-def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
-    """``dense_impl`` None: the model has no dense layers; its eager forward
-    is profiled."""
-    if dense_impl is None:
-        model = model._forward
-    else:
+def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10, eager=False):
+    """``dense_impl`` None: the model has no dense layers. ``eager``: the
+    eager forward is profiled, not the call (a replay from its second)."""
+    if dense_impl is not None:
         model.encoder.dense_impl = dense_impl
+    forward = "eager" if eager else "replay"
+    if eager:
+        model = model._forward
     with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
         for _ in range(3):
             model(x, focal)
@@ -76,9 +81,9 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
             model(x, focal)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / timed
-    kernels, device_us, by_kind, by_name, spans = 0, 0.0, {}, {}, {}
+    kernels, device_us, by_kind, by_name, spans, launches = 0, 0.0, {}, {}, {}, {}
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    # NeWCRFs's spans appear on the card too, as annotations around their kernels.
+    # The spans appear on the card too, as annotations around their kernels.
     ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_card
               if e.name.startswith(SPANS)]
     for e in on_card:
@@ -91,17 +96,19 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10):
         device_us += us
         if not e.name.startswith(("Memcpy", "Memset")):
             kernels += 1
+            launches[e.name] = launches.get(e.name, 0) + 1
         k = kind(e.name)
         by_kind[k] = by_kind.get(k, 0.0) + us / 1e3 / forwards
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / forwards
     device_ms = device_us / 1e3 / forwards
     return {
         "batch": x.shape[0], "dtype": "bfloat16" if bf16 else "float32",
-        "dense_impl": dense_impl, "kernels": kernels // forwards,
+        "dense_impl": dense_impl, "forward": forward, "kernels": kernels // forwards,
         "device_ms": device_ms, "wall_ms": wall_ms, "idle": 1.0 - device_ms / wall_ms,
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
         **({"spans_ms": spans} if spans else {}),
+        "launches": {k: n / forwards for k, n in sorted(launches.items())},
     }
 
 
@@ -130,16 +137,19 @@ def main(argv=None):
     print(smi, flush=True)
     cfg = Config(encoder=args.encoder, dataset="nyu", max_depth=10.0, bts_size=512,
                  model_flavor=args.model_flavor)
-    impls = ((None, None) if args.encoder == "large07"
-             else ("plain", args.dense_impl, args.dense_impl, "plain"))
+    # (dense_impl, eager) of each run at a batch, in turns.
+    turns = (((None, True), (None, False), (None, False), (None, True))
+             if args.encoder == "large07"
+             else tuple((impl, False) for impl in ("plain", args.dense_impl, args.dense_impl,
+                                                     "plain")))
     model = create_model(cfg).cuda().eval()
     gen = torch.Generator().manual_seed(1)
     runs = []
     for b in args.batches:
         x = torch.randn(b, 3, 480, 640, generator=gen).cuda()
         focal = torch.full((b,), 518.8579, device="cuda")
-        for dense_impl in impls:
-            run = profile_run(model, x, focal, dense_impl, bf16)
+        for dense_impl, eager in turns:
+            run = profile_run(model, x, focal, dense_impl, bf16, eager=eager)
             run["model_flavor"] = args.model_flavor
             run["device"] = smi
             runs.append(run)
@@ -147,6 +157,7 @@ def main(argv=None):
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(runs, f, indent=1)
+    return runs
 
 
 if __name__ == "__main__":

@@ -260,15 +260,18 @@ Phases, in order; any failure raises and the script exits nonzero:
     returns) and wall ms of an eager and a replayed call, with the card's
     name and power limit;
 16. NeWCRFs (``--encoder large07``): the window-attention kernel
-    (``ops/window_attention.py``, Triton) against its plain version at each
-    of the 8 call shapes of a batch-8 480x640 forward, bf16 and f32, with
-    and without the shift mask (``WINDOW_ATTN_TOL``), its device ms beside
-    its bound, the plain version's and SDPA's (``library_ms``); the
-    published model, seeded, at NYU 480x640 batch 8 in bf16 against the
+    (``ops/window_attention.py``, Triton, on the token grid) against its
+    plain version at each of the 8 call shapes of a batch-8 480x640
+    forward, bf16 and f32, shifted and not, with random non-zero pad rows
+    (``WINDOW_ATTN_TOL``), its device ms beside its bound, the plain
+    version's and SDPA's (``library_ms``); the published model, seeded,
+    every bias at 0.1 * randn, at NYU 480x640 batch 8 in bf16 against the
     float32 reference (``tests/newcrfs_reference.py``, TF32 off); the
     graph's replay bit for bit against the eager forward with 32 launches,
-    the graphs dropped on ``load_state_dict``; the forward's peak memory;
-    ``cli.test --encoder large07`` over 8 frames (``--save_lpg`` refused).
+    the graphs dropped on ``load_state_dict``; the eager and the replayed
+    forward profiled (``tools/profile_forward.py``): 32 window-attention
+    launches and no roll kernel; the forward's peak memory; ``cli.test
+    --encoder large07`` over 8 frames (``--save_lpg`` refused).
 Each phase's seconds are printed as it ends, and as JSON after phase 16.
 
 The line before the last is the kernels' JSON record (``launches`` from the
@@ -2458,13 +2461,18 @@ def phase15(torch, Config, create_model, counts, reset_counts, smi):
 
 
 # Phase 16: NeWCRFs (--encoder large07). The window attention's calls of a
-# batch-8 480x640 forward: (label, windows, heads, nW of the shift mask),
-# each call twice a stage or level (unshifted, then shifted), 18 times in
-# Swin's third stage: 32 launches a forward.
-NEWCRFS_CALLS = [("swin stage 1", 3312, 6, 414), ("swin stage 2", 864, 12, 108),
-                 ("swin stage 3", 240, 24, 30), ("swin stage 4", 72, 48, 9),
-                 ("crf3", 72, 32, 9), ("crf2", 240, 16, 30), ("crf1", 864, 8, 108),
-                 ("crf0", 3312, 4, 414)]
+# batch-8 480x640 forward: (label, h, w of the token grid, channels, heads,
+# form), each call twice a stage or level (unshifted, then shifted), 18 times
+# in Swin's third stage: 32 launches a forward. Swin's Q, K and V are views
+# of its qkv output, its pad rows the qkv bias's K and V; the CRF levels' Q
+# and K are views of their qk output, V a (B, h, w, C) tensor, the pad rows
+# the qk bias's K and zeros.
+NEWCRFS_CALLS = [("swin stage 1", 120, 160, 192, 6, "swin"),
+                 ("swin stage 2", 60, 80, 384, 12, "swin"),
+                 ("swin stage 3", 30, 40, 768, 24, "swin"),
+                 ("swin stage 4", 15, 20, 1536, 48, "swin"),
+                 ("crf3", 15, 20, 1024, 32, "crf"), ("crf2", 30, 40, 512, 16, "crf"),
+                 ("crf1", 60, 80, 256, 8, "crf"), ("crf0", 120, 160, 128, 4, "crf")]
 NEWCRFS_LAUNCHES = 32
 WINDOW_ATTN_SOURCE = "bts_tpu_torch/ops/window_attention.py (Triton)"
 # The kernel against its plain version at the same rounding points: bf16
@@ -2474,87 +2482,122 @@ WINDOW_ATTN_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2), "float32": dict(rtol=
 WINDOW_ATTN_PEAK = {"bfloat16": 989e12, "float32": 67e12}  # f32: FMAs, no tensor cores
 
 
-def window_attn_work(windows, heads, n_w, shifted, esize, n=49, d=32, window=7):
-    """(operations, bytes) of one call: QK^T and PV; q, k, v read and o
-    written once in the dtype, the f32 bias table, the int64 index and the
-    f32 mask once."""
-    ops = 2 * 2 * windows * heads * n * n * d
-    table = (2 * window - 1) ** 2 * heads * 4
-    nbytes = esize * 4 * windows * heads * n * d + table + n * n * 8 + (
-        n_w * n * n * 4 if shifted else 0)
+def window_attn_work(b, h, w, c, heads, pad_rows, shifted, esize, window=7, d=32):
+    """(operations, bytes) of one call on the token grid: QK^T and PV over
+    every window of the padded grid; q, k, v read and o written once a grid
+    token in the dtype, ``pad_rows`` f32 pad rows, the f32 bias table, the
+    int64 index and, shifted, the f32 mask once."""
+    hp, wp = -(-h // window) * window, -(-w // window) * window
+    n, n_w = window * window, (hp // window) * (wp // window)
+    ops = 2 * 2 * b * n_w * heads * n * n * d
+    nbytes = (esize * 4 * b * h * w * c + 4 * pad_rows * c + (2 * window - 1) ** 2 * heads * 4
+              + n * n * 8 + (n_w * n * n * 4 if shifted else 0))
     return ops, nbytes
+
+
+def window_attn_inputs(torch, b, h, w, c, heads, form, dtype, gen):
+    """q, k, v (b, h, w, heads, 32) as the form's block hands them, and its
+    float32 pad rows (random, far from zero; the CRF's V pad None)."""
+    d = c // heads
+    if form == "swin":
+        qkv = torch.randn(b, h * w, 3 * c, device="cuda", generator=gen).to(dtype)
+        grid = qkv.view(b, h, w, 3, heads, d)
+        q, k, v = grid[..., 0, :, :], grid[..., 1, :, :], grid[..., 2, :, :]
+        k_pad, v_pad = torch.randn(2, c, device="cuda", generator=gen)
+    else:
+        qk = torch.randn(b, h * w, 2 * c, device="cuda", generator=gen).to(dtype)
+        grid = qk.view(b, h, w, 2, heads, d)
+        q, k = grid[..., 0, :, :], grid[..., 1, :, :]
+        v = torch.randn(b, h, w, heads, d, device="cuda", generator=gen).to(dtype)
+        k_pad, v_pad = torch.randn(c, device="cuda", generator=gen), None
+    return q, k, v, k_pad, v_pad
 
 
 def phase16(torch, Config, create_model, smi):
     """Phase 16, NeWCRFs (``models/newcrfs.py``, ``ops/window_attention.py``):
-    (a) the window-attention kernel against its plain version at each of
-    NEWCRFS_CALLS, bf16 and f32, with and without the shift mask, q, k and v
-    as the model hands them (views of one qkv buffer); its device ms beside
-    its bound, the plain version's and SDPA's (``library_ms``; the port
-    never calls it); (b) the published ``large07`` at NYU 480x640, batch 8,
-    seeded: the bf16 program's depth (graph replay, inference mode) against
-    the float32 reference (``tests/newcrfs_reference.py``, TF32 off); (c)
-    the replay bit-equal to the eager forward, 32 launches a replay, the
-    graphs dropped on ``load_state_dict``; eager and replay ms and img/s;
-    (d) the forward's peak memory; (e) ``cli.test --encoder large07`` over 8
-    NYU frames in bf16 at batch 8: 8 pngs, 32 launches a forward, and
-    ``--save_lpg`` refused. Returns the kernel's record."""
+    (a) the window-attention kernel on the token grid against its plain
+    version at each of NEWCRFS_CALLS at batch 8, bf16 and f32, shifted and
+    not, q, k, v and the random non-zero pad rows as each block hands them;
+    its device ms beside its bound, the plain version's and SDPA's
+    (``library_ms``, on windows cut out beforehand; the port never calls
+    it); (b) the published ``large07`` at NYU 480x640, batch 8, seeded,
+    every bias drawn at 0.1 * randn so that padded tokens' keys matter: the
+    bf16 program's depth (graph replay, inference mode) against the float32
+    reference (``tests/newcrfs_reference.py``, TF32 off); (c) the replay
+    bit-equal to the eager forward, 32 launches a replay, the graphs dropped
+    on ``load_state_dict``; eager and replay ms and img/s; the eager and the
+    replayed forward profiled by ``tools/profile_forward.py --encoder
+    large07``: 32 ``window_attn_kernel`` launches and no ``roll`` kernel a
+    replay; (d) the forward's peak memory; (e) ``cli.test --encoder
+    large07`` over 8 NYU frames in bf16 at batch 8: 8 pngs, 32 launches a
+    forward, and ``--save_lpg`` refused. Returns the kernel's record."""
     import torch.nn.functional as F
 
     from bts_tpu_torch.cli import test as cli_test
     from bts_tpu_torch.models.encoders.swin import relative_position_index, shift_mask
     from bts_tpu_torch.ops import window_attention as wa
+    from bts_tpu_torch.tools import profile_forward
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import newcrfs_reference
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     index = relative_position_index(7).cuda()
+    scale = 32 ** -0.5
     calls = {}
-    for label, windows, heads, n_w in NEWCRFS_CALLS:
-        hp, wp = {414: (126, 161), 108: (63, 84), 30: (35, 42), 9: (21, 21)}[n_w]
+    for label, h, w, c, heads, form in NEWCRFS_CALLS:
+        hp, wp = wa.padded_grid(h, w, 7)
         mask = shift_mask(hp, wp, 7, 3, "cuda")
         table = 0.02 * torch.randn(169, heads, device="cuda", generator=gen)
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
-            qkv = torch.randn(windows, 49, 3, heads, 32, device="cuda", generator=gen).to(dtype)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            for m in (None, mask):
-                got = wa.window_attention_triton(q, k, v, table, index, m, 32 ** -0.5)
-                want = wa.window_attention_reference(q, k, v, table, index, m, 32 ** -0.5)
+            q, k, v, k_pad, v_pad = window_attn_inputs(torch, 8, h, w, c, heads, form, dtype,
+                                                       gen)
+            args = (table, index, mask, scale, 7, 3, k_pad, v_pad)
+            err = 0.0
+            for shift, m in ((0, None), (3, mask)):
+                got = wa.window_attention_triton(q, k, v, table, index, m, scale, 7, shift,
+                                                 k_pad, v_pad)
+                want = wa.window_attention_plain(q, k, v, table, index, m, scale, 7, shift,
+                                                 k_pad, v_pad)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                err = max(err, (got.float() - want.float()).abs().max().item())
                 torch.testing.assert_close(got.float(), want.float(), **WINDOW_ATTN_TOL[name])
-            ms = cuda_median_ms(lambda: wa.window_attention_triton(q, k, v, table, index, mask,
-                                                                   32 ** -0.5), samples=20)
-            plain_ms = cuda_median_ms(lambda: wa.window_attention_reference(
-                q, k, v, table, index, mask, 32 ** -0.5), samples=5, reps=2)
+            ms = cuda_median_ms(lambda: wa.window_attention_triton(q, k, v, *args), samples=20)
+            plain_ms = cuda_median_ms(lambda: wa.window_attention_plain(q, k, v, *args),
+                                      samples=5, reps=2)
             bias = table[index.view(-1)].view(49, 49, heads).permute(2, 0, 1)
             full = (bias[None] + mask[:, None]).to(dtype)  # (nW, heads, N, N)
-
-            per = [t.reshape(windows // n_w, n_w, 49, heads, 32).permute(0, 1, 3, 2, 4)
-                   for t in (q, k, v)]
+            n_w, idx = mask.shape[0], wa.grid_index(8, h, w, 7, 3, "cuda")
+            per = [torch.cat([t.reshape(-1, heads, 32), t.new_zeros(1, heads, 32)])[idx]
+                   .view(8, n_w, 49, heads, 32).permute(0, 1, 3, 2, 4) for t in (q, k, v)]
             library_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
-                *per, attn_mask=full, scale=32 ** -0.5), samples=10)
-            ops, nbytes = window_attn_work(windows, heads, n_w, True, qkv.element_size())
+                *per, attn_mask=full, scale=scale), samples=10)
+            ops, nbytes = window_attn_work(8, h, w, c, heads, 1 if v_pad is None else 2, True,
+                                           q.element_size())
             t_ops = ops / WINDOW_ATTN_PEAK[name] * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             bound = max(t_ops, t_bytes)
             calls[f"{label} {name}"] = {
-                "windows": windows, "heads": heads, "max_abs_err": err, "ms": ms,
+                "grid": [8, h, w], "heads": heads, "form": form, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "roofline_pct": 100 * bound / ms}
-            print(f"window attention {label} ({windows} windows x {heads} heads) {name}: "
-                  f"max abs err {err!r}; {ms!r} ms (shifted), bound {bound!r} ms "
+            print(f"window attention {label} (8x{h}x{w} grid, {heads} heads, {form} pads) "
+                  f"{name}: max abs err {err!r}; {ms!r} ms (shifted), bound {bound!r} ms "
                   f"({calls[f'{label} {name}']['bound_by']}, {100 * bound / ms:.1f}%), plain "
                   f"{plain_ms!r} ms, SDPA {library_ms!r} ms ({smi})", flush=True)
-            del qkv, q, k, v, got, want, full, per
+            del q, k, v, k_pad, v_pad, got, want, full, per
 
     # (b)-(d) the published model, seeded, NYU 480x640 at batch 8.
     cfg = Config(encoder="large07", dataset="nyu", max_depth=10.0, seed=16)
     model = create_model(cfg).cuda().eval()
     params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():  # non-zero biases: a padded token's K and V are qkv's and qk's bias
+        bias_gen = torch.Generator().manual_seed(16)
+        for key, p in model.named_parameters():
+            if key.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=bias_gen))
     x = torch.randn(8, 3, 480, 640, device="cuda", generator=gen)
     x2 = torch.randn(8, 3, 480, 640, device="cuda", generator=gen)
     focal = torch.full((8,), 518.8579, device="cuda")
@@ -2612,6 +2655,23 @@ def phase16(torch, Config, create_model, smi):
     del model, x, x2, eager, replay, new, new_eager
     torch.cuda.empty_cache()
 
+    # (c) The eager and the replayed forward profiled: the window attention
+    # in 32 launches a replay, no roll kernel.
+    runs = profile_forward.main(["--encoder", "large07", "--batches", "8"])
+    for run in runs:
+        attn = sum(n for k, n in run["launches"].items() if "window_attn_kernel" in k)
+        rolls = {k: n for k, n in run["launches"].items() if "roll_cuda" in k}
+        if attn != NEWCRFS_LAUNCHES or rolls:
+            raise RuntimeError(f"large07 {run['forward']} forward: {attn} window-attention "
+                               f"launches, roll kernels {rolls}")
+    profiles = {f"{r['forward']} {i}": {"device_ms": r["device_ms"], "kernels": r["kernels"],
+                                         "by_kind_ms": r["by_kind_ms"]}
+                for i, r in enumerate(runs)}
+    print(f"large07 profiled b8 bf16: {NEWCRFS_LAUNCHES} window_attn_kernel launches and no "
+          f"roll kernel a forward, eager and replayed; {json.dumps(profiles)} ({smi})",
+          flush=True)
+    torch.cuda.empty_cache()
+
     # (e) cli.test --encoder large07.
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2643,7 +2703,7 @@ def phase16(torch, Config, create_model, smi):
               "replaces": None, "launches_per_forward": NEWCRFS_LAUNCHES, "calls": calls,
               "model": {"parameters": params, "depth_absrel": absrel, "depth_max_m": max_m,
                         "eager_ms": eager_ms[1], "replay_ms": replay_ms[1],
-                        "peak_bytes": peak}, "device": smi}
+                        "peak_bytes": peak, "profiles": profiles}, "device": smi}
     print(json.dumps({"window_attention": record}))
     return record
 

@@ -127,10 +127,14 @@ def test_depth_and_levels_match_reference(weights, image):
     assert 0 < depth.min() and depth.max() < 10.0
 
 
-@pytest.mark.parametrize("mutation", ["mask dropped", "bias dropped", "V from x"])
+@pytest.mark.parametrize("mutation", ["mask dropped", "bias dropped", "V from x",
+                                      "pad keys zero"])
 def test_mutations_depart_from_reference(weights, image, monkeypatch, mutation):
     """Each part of the attention that the equations name moves the depth
-    beyond the tolerance above: a port without it fails the test before."""
+    beyond the tolerance above: a port without it fails the test before.
+    "pad keys zero": padded tokens' K and V loaded as zeros instead of what
+    the Linear makes of a zero row (its bias), which the weights' non-zero
+    biases tell apart."""
     ref, port = models(weights)
     want = outputs(ref, image)["depth"]
     real_mask, real_attention = swin.shift_mask, wa.window_attention
@@ -141,12 +145,15 @@ def test_mutations_depart_from_reference(weights, image, monkeypatch, mutation):
         monkeypatch.setattr(swin, "shift_mask", fake_mask)
         monkeypatch.setattr(newcrfs, "shift_mask", fake_mask)
     else:
-        def fake_attention(q, k, v, table, index, mask, scale):
+        def fake_attention(q, k, v, table, index, mask, scale, window, shift, k_pad, v_pad):
             if mutation == "bias dropped":
                 table = torch.zeros_like(table)
+            elif mutation == "pad keys zero":
+                k_pad = v_pad = None
             else:
-                v = k
-            return real_attention(q, k, v, table, index, mask, scale)
+                v, v_pad = k, k_pad
+            return real_attention(q, k, v, table, index, mask, scale, window, shift, k_pad,
+                                  v_pad)
 
         monkeypatch.setattr(swin, "window_attention", fake_attention)
         monkeypatch.setattr(newcrfs, "window_attention", fake_attention)
@@ -166,25 +173,93 @@ def einsum_attention(q, k, v, table, index, mask, scale):
     return torch.einsum("whij,wjhd->wihd", s.softmax(-1), v.double()).reshape(windows, n, -1)
 
 
+def to_windows(t, window, shift):
+    """The copies the grid form does without: (B, h, w, ...) padded with
+    zeros at the bottom and right to window multiples, rolled by (-shift,
+    -shift), cut into windows (B * nW, N, ...)."""
+    b, h, w = t.shape[:3]
+    hp, wp = wa.padded_grid(h, w, window)
+    full = t.new_zeros((b, hp, wp, *t.shape[3:]))
+    full[:, :h, :w] = t
+    full = torch.roll(full, shifts=(-shift, -shift), dims=(1, 2))
+    full = full.view(b, hp // window, window, wp // window, window, -1).transpose(2, 3)
+    return full.reshape(b * (hp // window) * (wp // window), window * window, *t.shape[3:])
+
+
+def from_windows(o, b, h, w, window, shift):
+    """``to_windows`` undone: windows (B * nW, N, C) back to the rolled-back,
+    cropped grid (B, h * w, C)."""
+    hp, wp = wa.padded_grid(h, w, window)
+    full = o.view(b, hp // window, wp // window, window, window, -1).transpose(2, 3)
+    full = torch.roll(full.reshape(b, hp, wp, -1), shifts=(shift, shift), dims=(1, 2))
+    return full[:, :h, :w].reshape(b, h * w, -1)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_plain_matches_einsum(masked):
     gen = torch.Generator().manual_seed(3)
-    windows, n_w, heads, d = 12, 6, 3, 32
-    qkv = torch.randn(windows, 49, 3, heads, d, generator=gen)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views, as Swin hands them
+    b, h, w, heads, d = 2, 14, 21, 3, 32
+    qkv = torch.randn(b, h, w, 3, heads, d, generator=gen)
+    q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]  # as Swin hands them
     table = torch.randn(169, heads, generator=gen)
     index = swin.relative_position_index(7)
-    mask = swin.shift_mask(14, 21, 7, 3, "cpu") if masked else None
-    assert mask is None or mask.shape == (n_w, 49, 49)
-    got = wa.window_attention(q, k, v, table, index, mask, d ** -0.5)
-    want = einsum_attention(q, k, v, table, index, mask, d ** -0.5)
-    assert got.shape == (windows, 49, heads * d) and got.dtype == torch.float32
+    shift, mask = (3, swin.shift_mask(h, w, 7, 3, "cpu")) if masked else (0, None)
+    assert mask is None or mask.shape == (6, 49, 49)
+    got = wa.window_attention(q, k, v, table, index, mask, d ** -0.5, 7, shift, None, None)
+    want = einsum_attention(*(to_windows(t, 7, shift) for t in (q, k, v)), table, index, mask,
+                            d ** -0.5)
+    want = from_windows(want, b, h, w, 7, shift)
+    assert got.shape == (b, h * w, heads * d) and got.dtype == torch.float32
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
-    low = wa.window_attention(*(t.bfloat16() for t in (q, k, v)), table, index, mask, d ** -0.5)
+    low = wa.window_attention(*(t.bfloat16() for t in (q, k, v)), table, index, mask, d ** -0.5,
+                              7, shift, None, None)
     assert low.dtype == torch.bfloat16
     torch.testing.assert_close(low.double(), want, rtol=0.05, atol=0.05)
     with pytest.raises(ValueError, match="CUDA"):
-        wa.window_attention_triton(q, k, v, table, index, mask, d ** -0.5)
+        wa.window_attention_triton(q, k, v, table, index, mask, d ** -0.5, 7, shift, None, None)
+
+
+@pytest.mark.parametrize("pads", ["swin", "crf"])
+@pytest.mark.parametrize("grid", [(10, 13), (14, 21), (16, 24)])
+@pytest.mark.parametrize("shift", [0, 3])
+def test_grid_form_matches_padded_windows(pads, grid, shift):
+    """The grid form against the chain of copies it replaces: the normed
+    tokens padded with zeros, through the Linear, rolled, cut into windows,
+    ``window_attention_reference``, put back, rolled back, cropped. Swin's
+    pad rows are its qkv bias's K and V; the CRF's K is its qk bias's and
+    its V (the prediction, which no Linear makes) zero. Float32 on the CPU,
+    the biases random and far from zero."""
+    gen = torch.Generator().manual_seed(sum(grid) + shift)
+    (h, w), b, heads, d = grid, 2, 2, 32
+    c = heads * d
+    linear = torch.nn.Linear(c, (3 if pads == "swin" else 2) * c)
+    with torch.no_grad():
+        linear.weight.copy_(torch.randn(linear.weight.shape, generator=gen) * c ** -0.5)
+        linear.bias.copy_(torch.randn(linear.bias.shape, generator=gen))
+    x = torch.randn(b, h, w, c, generator=gen)
+    v_grid = torch.randn(b, h, w, heads, d, generator=gen)
+    table = torch.randn(169, heads, generator=gen)
+    index = swin.relative_position_index(7)
+    hp, wp = wa.padded_grid(h, w, 7)
+    mask = swin.shift_mask(hp, wp, 7, shift, "cpu") if shift else None
+    with torch.no_grad():
+        proj = linear(x).view(b, h, w, -1, heads, d)
+        bias = linear.bias.view(-1, c)
+        if pads == "swin":
+            q, k, v, k_pad, v_pad = proj[..., 0, :, :], proj[..., 1, :, :], proj[..., 2, :, :], \
+                bias[1], bias[2]
+        else:
+            q, k, v, k_pad, v_pad = proj[..., 0, :, :], proj[..., 1, :, :], v_grid, bias[1], None
+        got = wa.window_attention(q, k, v, table, index, mask, d ** -0.5, 7, shift, k_pad,
+                                  v_pad)
+        # The old chain: pad x with zeros, the Linear on every padded token.
+        windows = linear(to_windows(x, 7, shift)).view(-1, 49, proj.shape[3], heads, d)
+        v_windows = windows[:, :, 2] if pads == "swin" else to_windows(v_grid, 7, shift)
+        want = wa.window_attention_reference(windows[:, :, 0], windows[:, :, 1], v_windows,
+                                             table, index, mask, d ** -0.5)
+        want = from_windows(want, b, h, w, 7, shift)
+    assert got.shape == (b, h * w, c)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
 def test_shift_mask_is_swins():
