@@ -133,7 +133,7 @@ def make_depth_fn(cfg: Config, device="cuda", model=None):
         img = normalize_image(img, normalization).astype(np.float32)
         image = torch.from_numpy(img).permute(2, 0, 1)[None].to(device)
         with torch.inference_mode(), compute_context(cfg, device):
-            depth = model(image, focal)[4]
+            depth = model(image, focal)[-1]
         return depth[0, 0].float().cpu().numpy()
 
     return depth_fn

@@ -50,10 +50,10 @@ def compute_context(cfg: Config, device: torch.device):
 
 
 def load_model(cfg: Config, device: torch.device) -> torch.nn.Module:
-    """create_model(cfg) seeded from cfg.seed (BTS, or NeWCRFs for
-    ``--encoder large07``), then the weights of ``cfg.checkpoint_path`` (a
-    reference or port .pth, or a TF checkpoint) when one is set."""
-    from bts_tpu_torch.models.bts import create_model
+    """The model of ``cfg.encoder`` seeded from cfg.seed (``models.create_model``),
+    then the weights of ``cfg.checkpoint_path`` (a reference or port .pth, or
+    a TF checkpoint) when one is set."""
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.models.convert import load_weights
 
     model = create_model(cfg)
@@ -74,13 +74,14 @@ def forward_padded(model, image: torch.Tensor, focal: torch.Tensor):
 def run_predictions(cfg: Config, device: torch.device) -> str:
     """Dump predictions for cfg.filenames_file into result_<model_name>/.
     The depth map is the model's last output; ``--save_lpg`` also writes
-    BTS's four guidance maps, which a NeWCRFs model has not. Returns the
-    output dir."""
-    from bts_tpu_torch.models.newcrfs import VERSIONS
+    the four guidance maps, which only a model whose ``OUTPUTS`` hold them
+    has. Returns the output dir."""
+    from bts_tpu_torch.models import model_class
 
-    if cfg.save_lpg and cfg.encoder in VERSIONS:
-        raise ValueError(f"--save_lpg writes BTS's LPG maps; --encoder {cfg.encoder} "
-                         "(NeWCRFs) returns the depth map alone")
+    outputs = model_class(cfg.encoder).OUTPUTS
+    if cfg.save_lpg and "lpg8x8" not in outputs:
+        raise ValueError(f"--save_lpg writes the LPG maps; --encoder {cfg.encoder} returns "
+                         f"{outputs}")
     device = torch.device(device)
     model = load_model(cfg, device)
     loader = EvalLoader(cfg, "test")

@@ -3,8 +3,9 @@
 
 Reference: tensorflow/bts_sequence.py:59-187. Every '*.png' and '*.jpg' of a
 directory goes through the model at batch 1 with a fixed per-dataset focal
-(NYU 518.8579, KITTI 718.856, or ``--focal``); the depth and the three LPG
-maps are written as colormapped pngs. Frames of any size are edge-padded to
+(NYU 518.8579, KITTI 718.856, or ``--focal``); the depth and, for a model
+whose ``OUTPUTS`` hold them, the three LPG maps are written as colormapped
+pngs. Frames of any size are edge-padded to
 multiples of 32 and the outputs cropped back. The forward runs on the card
 (``--device cpu`` for the CPU) under ``inference_mode``, in bf16 autocast
 under ``--compute_dtype bfloat16``.
@@ -54,14 +55,12 @@ def run_sequence(cfg: Config, image_dir: str, out_dir: Optional[str] = None,
         image = torch.from_numpy(img).permute(2, 0, 1)[None].to(device)
         with torch.inference_mode(), compute_context(cfg, device):
             outs = forward_padded(model, image, focal)
-        lpg8, lpg4, lpg2, _, depth = [o[0, 0].float().cpu().numpy() for o in outs]
+        maps = dict(zip(model.OUTPUTS, (o[0, 0].float().cpu().numpy() for o in outs)))
         base = os.path.splitext(os.path.basename(path))[0]
-        for name, arr in (
-            ("depth", depth),
-            ("lpg8x8", lpg8 * cfg.max_depth),
-            ("lpg4x4", lpg4 * cfg.max_depth),
-            ("lpg2x2", lpg2 * cfg.max_depth),
-        ):
+        for name in ("depth", "lpg8x8", "lpg4x4", "lpg2x2"):
+            if name not in maps:
+                continue
+            arr = maps[name] if name == "depth" else maps[name] * cfg.max_depth
             c = colorize(np.maximum(arr, 1e-6), cmap="Greys")
             Image.fromarray(c.transpose(1, 2, 0)).save(os.path.join(out_dir, f"{base}_{name}.png"))
         n += 1

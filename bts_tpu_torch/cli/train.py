@@ -35,9 +35,9 @@ def main(argv=None) -> int:
     if cfg.mode != "train":
         print("cli.train is only for training. Use cli.test instead.")
         return -1
-    from bts_tpu_torch.models.bts import check_trainable
+    from bts_tpu_torch.models import check_trainable, model_class
 
-    check_trainable(cfg.encoder)
+    check_trainable(model_class(cfg.encoder))
     if cfg.checkpoint_path:
         from bts_tpu_torch.training.snapshot import activate_snapshot, find_run_dir
 

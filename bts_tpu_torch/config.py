@@ -262,7 +262,7 @@ def parse_args_with_device(argv: Optional[Sequence[str]] = None) -> Tuple[Config
 
 
 def _check(cfg: Config) -> Config:
-    from bts_tpu_torch.models.bts import check_encoder
+    from bts_tpu_torch.models import check_encoder
     from bts_tpu_torch.ops.lpg import check_impl
 
     if cfg.dataset not in ("nyu", "kitti"):

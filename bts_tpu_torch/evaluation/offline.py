@@ -72,7 +72,7 @@ def evaluate_pending(cfg: Config, ckpt_dir: Optional[str] = None, maturity_secs:
                      writer=None, device: Optional[torch.device] = None) -> Dict[int, np.ndarray]:
     """Evaluate every pending checkpoint on ``device`` (default the CUDA
     card); returns {step: measures}."""
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.models.convert import load_weights
 
     ckpt_dir = ckpt_dir or os.path.join(cfg.log_directory, cfg.model_name)

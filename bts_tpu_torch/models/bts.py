@@ -14,7 +14,6 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from bts_tpu_torch.models import newcrfs
 from bts_tpu_torch.models.decoder import BTSDecoder
 from bts_tpu_torch.models.encoders import densenet, mobilenet, resnet
 from bts_tpu_torch.models.graphed import GraphedForward
@@ -35,7 +34,7 @@ ENCODERS = {
 
 class BTSModel(GraphedForward):
     """image (B,3,H,W) normalized, focal (B,) -> (lpg8x8, lpg4x4, lpg2x2,
-    reduc1x1, depth_est), each (B,1,H,W) float32.
+    reduc1x1, depth_est), each (B,1,H,W) float32 (``OUTPUTS``).
 
     A DenseNet encoder's ``dense_impl`` (``encoders/densenet.py``) is
     ``auto``: an inference forward on a card runs the dense layers through
@@ -59,6 +58,9 @@ class BTSModel(GraphedForward):
     graph of itself from the second call of an input signature on
     (``forward_graphs``, ``models/graphed.py``); ``train()``, ``.to()`` and
     ``load_state_dict`` drop the held graphs."""
+
+    OUTPUTS = ("lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth")
+    TRAINS = True
 
     def __init__(
         self,
@@ -120,35 +122,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def check_encoder(name: str) -> None:
-    """Raise unless ``name`` is an encoder of the zoo or a NeWCRFs version."""
-    if name not in ENCODERS and name not in newcrfs.VERSIONS:
-        raise ValueError(f"unknown encoder {name!r}; options: "
-                         f"{sorted(ENCODERS) + sorted(newcrfs.VERSIONS)}")
-
-
-def check_trainable(encoder: str) -> None:
-    """Raise for an encoder that this port serves but does not train."""
-    if encoder in newcrfs.VERSIONS:
-        raise ValueError(f"--encoder {encoder} (NeWCRFs) is served, not trained, by this "
-                         "port: its window-attention kernel has no backward; train a BTS "
-                         "encoder")
-
-
-def create_model(cfg, training: bool = False) -> nn.Module:
-    """Build the model of ``cfg.encoder`` on the CPU, its weights seeded from
-    ``cfg.seed``: a BTSModel in the graph of ``cfg.resolved_flavor``,
-    rematerialising as ``cfg.remat``, ``remat_policy`` and ``remat_scope``
-    say; or, for a NeWCRFs version (``--encoder large07``), a NeWCRFsModel,
-    which serves only: with ``training`` it raises (``check_trainable``)."""
-    check_encoder(cfg.encoder)
-    if training:
-        check_trainable(cfg.encoder)
-    if cfg.encoder in newcrfs.VERSIONS:
-        if cfg.resolved_flavor != "pt":
-            raise ValueError(f"--encoder {cfg.encoder} (NeWCRFs) has no TF graph "
-                             f"(model_flavor {cfg.resolved_flavor!r})")
-        return newcrfs.create_model(cfg)
+def create_model(cfg) -> BTSModel:
+    """The BTSModel of ``cfg.encoder`` (an encoder of ``ENCODERS``) on the
+    CPU, its weights seeded from ``cfg.seed``, in the graph of
+    ``cfg.resolved_flavor``, rematerialising as ``cfg.remat``,
+    ``remat_policy`` and ``remat_scope`` say. Callers build through the zoo,
+    ``models.create_model``."""
     if cfg.bts_size < 128:
         raise ValueError(
             f"bts_size must be >= 128 (got {cfg.bts_size}): the reduction_1x1 "

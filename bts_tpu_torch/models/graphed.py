@@ -33,7 +33,7 @@ captured on. A graph keeps alive what it reads by address (the parameters
 and buffers it was captured on, the modules' cached tensors), so a replay
 on moved weights reads the old ones, never freed memory. ``train()``,
 ``.to()`` and ``load_state_dict`` drop the graphs at once
-(``GraphedForward``, which ``BTSModel`` and ``NeWCRFsModel`` extend).
+(``GraphedForward``, which every model of the zoo extends).
 
 Everything else runs eager: CPU and meta tensors, train mode or grad
 enabled (which also drop the held graphs, so that training does not hold
@@ -51,10 +51,10 @@ returned a replay's outputs; a capturing call replays too) and
 ``EAGER_FORWARDS`` (card forwards that ran eager); the hit share is
 REPLAYS / (REPLAYS + EAGER_FORWARDS). The spans ``bts/forward_capture`` and
 ``bts/forward_graph`` (the replay) name them in a profile. The kernels'
-launch counters (``ops/fused_dense_cuda``, ``ops/lpg_cuda``,
-``ops/window_attention``) count launches
-that run: a capture runs nothing, and each replay adds the launches its
-capture recorded, also one whose outputs the state check then drops.
+launch counters, which each kernel module registers in
+``ops.LAUNCH_COUNTERS``, count launches that run: a capture runs nothing,
+and each replay adds the launches its capture recorded, also one whose
+outputs the state check then drops.
 
 One caller at a time: a module's graphs share their static buffers between
 calls (a replay waits for the previous replay of its graph on any stream,
@@ -65,14 +65,14 @@ from __future__ import annotations
 
 import collections
 import operator
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn.modules import module as nn_module
 from torch.profiler import record_function
 
-from bts_tpu_torch.ops import fused_dense_cuda, lpg_cuda, window_attention
+from bts_tpu_torch.ops import LAUNCH_COUNTERS
 
 # Forwards in this process; each bumped in one place.
 CAPTURES = 0
@@ -81,23 +81,20 @@ EAGER_FORWARDS = 0
 
 KEEP = 2  # graphs held per module
 
-# The kernels' launch counters that a replay adds to.
-LAUNCH_COUNTERS = ((fused_dense_cuda, "TAPS_LAUNCHES"), (fused_dense_cuda, "EO_LAUNCHES"),
-                   (lpg_cuda, "LAUNCHES"), (lpg_cuda, "BWD_LAUNCHES"),
-                   (window_attention, "LAUNCHES"))
-
 _SETTINGS = (str, int, float, bool, type(None))
 _VERSION = operator.attrgetter("_version")
 
 
-def launch_counts() -> Tuple[int, ...]:
-    """The values of ``LAUNCH_COUNTERS``, in order."""
-    return tuple(getattr(mod, name) for mod, name in LAUNCH_COUNTERS)
+def launch_counts() -> Dict[str, int]:
+    """The value of each counter of ``ops.LAUNCH_COUNTERS``, by name."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in LAUNCH_COUNTERS.items()}
 
 
-def _set_launches(counts: Sequence[int]) -> None:
-    for (mod, name), n in zip(LAUNCH_COUNTERS, counts):
-        setattr(mod, name, n)
+def _set_launches(counts: Mapping[str, int]) -> None:
+    """Set each registered counter to its value in ``counts``; one that
+    ``counts`` lacks (its module was imported since) to 0."""
+    for name, (mod, attr) in LAUNCH_COUNTERS.items():
+        setattr(mod, attr, counts.get(name, 0))
 
 
 def call_key(inputs: Sequence[torch.Tensor]) -> tuple:
@@ -191,7 +188,7 @@ class _Entry:
     def __init__(self, state, graph, static, outputs, launches, held):
         self.state = state  # module_state at capture
         self.graph, self.static, self.outputs = graph, static, outputs
-        self.launches = launches  # kernel launches the capture recorded
+        self.launches = launches  # kernel launches the capture recorded, by counter
         self.held = held  # what the graph reads by address outside its pool
 
 
@@ -259,7 +256,7 @@ class ForwardGraphs:
                     kind, dtype=torch.get_autocast_dtype(kind),
                     enabled=torch.is_autocast_enabled(kind), cache_enabled=False):
                 outputs = graph.capture(lambda: forward(*static))
-            launches = tuple(a - b for a, b in zip(launch_counts(), before))
+            launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
         finally:
             _set_launches(before)  # a capture runs nothing
         entry = _Entry(state, graph, static, outputs, launches, _read_by_address(module))
@@ -272,7 +269,7 @@ class ForwardGraphs:
     def _replay(self, entry: _Entry, inputs):
         with record_function("bts/forward_graph"):
             outputs = entry.graph.replay(entry.static, inputs, entry.outputs)
-        _set_launches([n + k for n, k in zip(launch_counts(), entry.launches)])
+        _set_launches({k: n + entry.launches.get(k, 0) for k, n in launch_counts().items()})
         return outputs
 
 
@@ -283,10 +280,18 @@ def drop_graphs(module: nn.Module, *_) -> None:
 
 
 class GraphedForward(nn.Module):
-    """A model whose ``forward(x, focal)`` runs ``self._forward`` through
-    ``ForwardGraphs``: an inference forward on a card replays a CUDA graph
-    of it from the second call of a call key on. ``train()``, ``.to()`` and
-    ``load_state_dict`` drop the held graphs."""
+    """A model of the zoo (``models/__init__.py``): ``forward(x, focal)``
+    runs ``self._forward`` through ``ForwardGraphs``, so an inference forward
+    on a card replays a CUDA graph of it from the second call of a call key
+    on. ``train()``, ``.to()`` and ``load_state_dict`` drop the held graphs.
+
+    Each model class declares what its callers need to know of it:
+
+    - ``OUTPUTS``: the names of the tensors its forward returns, in order,
+      each (B, 1, H, W) float32, the depth map always last (``"depth"``), so
+      a caller that wants the depth takes ``[-1]``;
+    - ``TRAINS``: whether this port trains it; a train step refuses a model
+      whose ``TRAINS`` is false (``models.check_trainable``)."""
 
     def __init__(self):
         super().__init__()

@@ -201,6 +201,9 @@ class NeWCRFsModel(GraphedForward):
     (B, 1, H, W) float32; H and W multiples of 32 (``apps/predict``'s
     ``forward_padded`` pads them). The widths default to ``large07``."""
 
+    OUTPUTS = ("depth",)
+    TRAINS = False
+
     def __init__(self, max_depth: float = 10.0, embed_dim: int = 192,
                  depths: Sequence[int] = (2, 2, 18, 2), num_heads: Sequence[int] = (6, 12, 24, 48),
                  crf_dims: Sequence[int] = (128, 256, 512, 1024),
@@ -251,6 +254,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def create_model(cfg) -> NeWCRFsModel:
     """``NeWCRFsModel`` of ``cfg.encoder``'s widths (``VERSIONS``) at
-    ``cfg.max_depth``, on the CPU, its weights seeded from ``cfg.seed``."""
+    ``cfg.max_depth``, on the CPU, its weights seeded from ``cfg.seed``.
+    There is no TF graph of it."""
+    if cfg.resolved_flavor != "pt":
+        raise ValueError(f"--encoder {cfg.encoder} (NeWCRFs) has no TF graph "
+                         f"(model_flavor {cfg.resolved_flavor!r})")
     model = NeWCRFsModel(max_depth=cfg.max_depth, **VERSIONS[cfg.encoder])
     return init_weights(model, torch.Generator().manual_seed(cfg.seed))

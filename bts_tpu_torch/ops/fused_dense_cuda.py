@@ -20,14 +20,13 @@ from typing import Optional
 
 import torch
 
-from bts_tpu_torch.ops import _build
+from bts_tpu_torch.ops import _build, count_launches
 from bts_tpu_torch.ops.fused_dense import pack_eo_kmajor, pack_taps_kmajor
 
-# Kernel launches that ran in this process: each bumped here once per
-# launch, and by a CUDA graph's replay (models/graphed.py) for the launches
-# its capture recorded; a capture itself runs nothing and counts nothing.
+# Kernel launches that ran in this process (``ops.LAUNCH_COUNTERS``).
 TAPS_LAUNCHES = 0
 EO_LAUNCHES = 0
+count_launches(__name__, "TAPS_LAUNCHES", "EO_LAUNCHES")
 
 # Both forms' kernels are built for the (Cmid, G) of DenseNet161 and
 # DenseNet121.

@@ -16,14 +16,12 @@ from typing import Optional
 
 import torch
 
-from bts_tpu_torch.ops import _build
+from bts_tpu_torch.ops import _build, count_launches
 
-# Kernel launches that ran in this process: each bumped here once per
-# launch of its kernel, and by a CUDA graph's replay (models/graphed.py) for
-# the launches its capture recorded; a capture itself runs nothing and
-# counts nothing.
+# Kernel launches that ran in this process (``ops.LAUNCH_COUNTERS``).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+count_launches(__name__, "LAUNCHES", "BWD_LAUNCHES")
 
 RATIOS = (2, 4, 8)
 OUT_DTYPES = (torch.float32, torch.bfloat16)

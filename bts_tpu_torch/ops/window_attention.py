@@ -56,10 +56,11 @@ from typing import Optional, Tuple
 
 import torch
 
-# Kernel launches that ran in this process: bumped here once per launch, and
-# by a CUDA graph's replay (models/graphed.py) for the launches its capture
-# recorded; a capture itself runs nothing and counts nothing.
+from bts_tpu_torch.ops import count_launches
+
+# Kernel launches that ran in this process (``ops.LAUNCH_COUNTERS``).
 LAUNCHES = 0
+count_launches(__name__, "LAUNCHES")
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_TOKENS = 64  # a program holds a window's tokens in one 64-row tile

@@ -105,11 +105,6 @@ def wrap_data_parallel(model: nn.Module, dp: Optional[DataParallel]) -> nn.Modul
     when it wraps (``bts_tpu``'s ``replicate_tree`` before step 0). The BN
     statistics are computed alike on every rank, so buffers are not
     broadcast again each forward."""
-    from bts_tpu_torch.models.newcrfs import NeWCRFsModel
-
-    if isinstance(model, NeWCRFsModel):
-        raise ValueError("a train step, on one rank or several, takes a BTS model; NeWCRFs "
-                         "(--encoder large07) is served, not trained, by this port")
     if dp is None:
         return model
     from torch.nn.parallel import DistributedDataParallel

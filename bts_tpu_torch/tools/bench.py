@@ -55,7 +55,7 @@ def load_form(form: str, encoder: str, device: torch.device):
     kernels on a card) or ``plain`` (``lpg_impl xla``, ``dense_impl plain``)."""
     cfg = bench_config(encoder, FORMS[form])
     model = load_model(cfg, device)
-    if form == "plain" and hasattr(model.encoder, "dense_impl"):
+    if form == "plain" and hasattr(getattr(model, "encoder", None), "dense_impl"):
         model.encoder.dense_impl = "plain"
     return model, cfg
 
@@ -63,7 +63,7 @@ def load_form(form: str, encoder: str, device: torch.device):
 def depth_map(model: torch.nn.Module, cfg: Config, image: torch.Tensor,
               focal: torch.Tensor, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(), compute_context(cfg, device):
-        return model(image, focal)[4]
+        return model(image, focal)[-1]
 
 
 def make_forward(model: torch.nn.Module, cfg: Config, device: torch.device):
@@ -72,7 +72,7 @@ def make_forward(model: torch.nn.Module, cfg: Config, device: torch.device):
 
     def forward(image: torch.Tensor, focal: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), compute_context(cfg, device):
-            return model(image, focal)[4].sum()
+            return model(image, focal)[-1].sum()
 
     return forward
 

@@ -34,7 +34,7 @@ import numpy as np
 
 from bts_tpu_torch.cli.test import resolve_device
 from bts_tpu_torch.config import Config
-from bts_tpu_torch.models.bts import create_model
+from bts_tpu_torch.models import create_model
 from bts_tpu_torch.tools import benchtools
 from bts_tpu_torch.training.optim import create_optimizer
 from bts_tpu_torch.training.state import TrainState, make_train_step, to_device
@@ -104,7 +104,7 @@ def main(argv=None) -> list:
     args = parse(argv)
     device = resolve_device(args.device)
     cfg = bench_config(args)
-    model = create_model(cfg, training=True).to(device)
+    model = create_model(cfg).to(device)
     optimizer, _ = create_optimizer(cfg, model, num_total_steps=10_000)
     state = TrainState(model, optimizer)
     train_step = make_train_step(cfg)

@@ -41,7 +41,7 @@ def global_batch(n: int) -> dict:
 def rank_main(cfg: Config, dp) -> dict:
     """One rank: two train steps on its sample, then the eval sums."""
     from bts_tpu_torch.evaluation.device_eval import make_batch_metrics
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.parallel.mesh import local_slice
     from bts_tpu_torch.training.optim import create_optimizer
     from bts_tpu_torch.training.state import TrainState, make_train_step, to_device
@@ -58,7 +58,7 @@ def rank_main(cfg: Config, dp) -> dict:
 
     model.eval()
     with torch.no_grad():
-        depth = model(batch["image"].permute(0, 3, 1, 2), batch["focal"])[4][:, 0]
+        depth = model(batch["image"].permute(0, 3, 1, 2), batch["focal"])[-1][:, 0]
     gt_raw = np.round(local["depth"][..., 0] * 1000.0).astype(np.uint16)
     sums, count = make_batch_metrics(cfg)(depth, gt_raw, np.ones(len(gt_raw), np.float32))
     total = torch.tensor([*sums, count], dtype=torch.float64,
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
     parser.add_argument("n", type=int, help="ranks (one sample each)")
     parser.add_argument("--device", default="", help="'cpu' for gloo ranks on the CPU")
     args = parser.parse_args(argv)
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.parallel import launch
     from bts_tpu_torch.parallel.inference import make_sharded_forward
 

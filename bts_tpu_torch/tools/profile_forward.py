@@ -1,12 +1,14 @@
 """Where a forward's time goes on the card: ``python -m bts_tpu_torch.tools.profile_forward``.
 
-DenseNet161-BTS NYU at full width (``bts_size`` 512), 480x640, seeded
+The model of ``--encoder`` (any name of the zoo; DenseNet161-BTS by
+default) for NYU at full width (``bts_size`` 512), 480x640, seeded
 weights, in the PT graph or (``--model_flavor tf``) the TF graph, under ``inference_mode`` in ``--dtype`` bfloat16 (autocast, the
 default) or float32 (``cli.test``'s default dtype; TF32 off in cuDNN and
-cuBLAS, so the plain convs are f32 too); at each batch the dense layers run
-in turns plain, ``--dense_impl`` (auto, the taps kernel, by default; or eo),
-twice, and plain. ``--encoder large07`` profiles NeWCRFs instead, at each
-batch in turns its eager forward (``model._forward``, so that the spans
+cuBLAS, so the plain convs are f32 too). A model with fused dense layers (a
+DenseNet encoder's ``dense_impl``) runs them at each batch in turns plain,
+``--dense_impl`` (auto, the taps kernel, by default; or eo), twice, and
+plain. Any other model (``--encoder large07``, NeWCRFs) runs at each batch
+in turns its eager forward (``model._forward``, so that spans such as
 ``newcrfs/encoder`` and ``newcrfs/decoder`` show; the device ms a forward
 of the kernels inside each is listed), its replayed forward twice, and the
 eager forward. For each
@@ -46,11 +48,6 @@ KINDS = (
 )
 
 
-# record_function spans whose device ms a run lists: NeWCRFs's halves, and
-# the graph's replay (``bts/forward_graph``) around a replayed forward's kernels.
-SPANS = ("newcrfs/", "bts/")
-
-
 def kind(name: str) -> str:
     low = name.lower()
     for label, patterns in KINDS:
@@ -83,11 +80,13 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10, ea
         wall_ms = (time.perf_counter() - t0) * 1e3 / timed
     kernels, device_us, by_kind, by_name, spans, launches = 0, 0.0, {}, {}, {}, {}
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    # The spans appear on the card too, as annotations around their kernels.
+    # The record_function spans appear on the card too, as annotations around
+    # their kernels: a model's own (NeWCRFs's halves) and the graph's replay
+    # (``bts/forward_graph``) around a replayed forward's kernels.
     ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_card
-              if e.name.startswith(SPANS)]
+              if e.is_user_annotation]
     for e in on_card:
-        if e.name.startswith(SPANS):
+        if e.is_user_annotation:
             continue
         us = e.time_range.elapsed_us()
         for name, start, end in ranges:
@@ -114,8 +113,7 @@ def profile_run(model, x, focal, dense_impl, bf16=True, forwards=3, timed=10, ea
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--encoder", choices=("densenet161_bts", "large07"),
-                        default="densenet161_bts", help="BTS's DenseNet161, or NeWCRFs")
+    parser.add_argument("--encoder", default="densenet161_bts", help="a name of the zoo")
     parser.add_argument("--batches", type=int, nargs="+", default=[8, 1])
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     parser.add_argument("--dense_impl", choices=("auto", "eo"), default="auto",
@@ -131,18 +129,18 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     from bts_tpu_torch.config import Config
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
 
     smi = card(torch.device("cuda"))
     print(smi, flush=True)
     cfg = Config(encoder=args.encoder, dataset="nyu", max_depth=10.0, bts_size=512,
                  model_flavor=args.model_flavor)
-    # (dense_impl, eager) of each run at a batch, in turns.
-    turns = (((None, True), (None, False), (None, False), (None, True))
-             if args.encoder == "large07"
-             else tuple((impl, False) for impl in ("plain", args.dense_impl, args.dense_impl,
-                                                     "plain")))
     model = create_model(cfg).cuda().eval()
+    # (dense_impl, eager) of each run at a batch, in turns.
+    turns = (tuple((impl, False) for impl in ("plain", args.dense_impl, args.dense_impl,
+                                              "plain"))
+             if hasattr(getattr(model, "encoder", None), "dense_impl")
+             else ((None, True), (None, False), (None, False), (None, True)))
     gen = torch.Generator().manual_seed(1)
     runs = []
     for b in args.batches:

@@ -43,7 +43,7 @@ def top_kernels(prof, steps: int, n: int = 12) -> dict:
 
 def profile_step(batch: int, bf16: bool, steps: int = 3, timed: int = 10, **remat) -> dict:
     from bts_tpu_torch.config import Config
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.training.optim import create_optimizer
     from bts_tpu_torch.training.state import TrainState, make_train_step
 

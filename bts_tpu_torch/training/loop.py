@@ -51,7 +51,7 @@ from bts_tpu_torch.data.loader import EvalLoader, TrainLoader
 from bts_tpu_torch.evaluation.metrics import EVAL_METRICS
 from bts_tpu_torch.evaluation.offline import eval_summary_writer
 from bts_tpu_torch.evaluation.online import make_eval_forward, run_online_eval
-from bts_tpu_torch.models.bts import create_model
+from bts_tpu_torch.models import create_model
 from bts_tpu_torch.parallel.mesh import DataParallel, agree_any
 from bts_tpu_torch.training import checkpoint as ckpt_lib
 from bts_tpu_torch.training.lr import polynomial_decay_host
@@ -185,7 +185,7 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     device = torch.device(dp.device if dp is not None else (device or "cuda"))
     run_dir = snapshot_run(cfg) if cfg.log_directory and primary else ""
 
-    model = create_model(cfg, training=True)
+    model = create_model(cfg)
     say(f"Total number of parameters: {sum(p.numel() for p in model.parameters())}")
     if cfg.pretrained_model:
         warm_start(model, cfg.pretrained_model, cfg, verbose=primary)

@@ -3,7 +3,7 @@
 One step (reference hot loop, pytorch/bts_main.py:439-466): the host batch
 goes to the device, is augmented there under ``--device_augment``, runs
 through the model in train mode (bf16 autocast under ``--compute_dtype
-bfloat16``), and the silog loss of the final depth (``outs[4]``, mask
+bfloat16``), and the silog loss of the final depth (the last output, mask
 ``depth_gt > cfg.depth_mask_min``) is taken in f32; then backward and the
 optimizer's update. The step returns the loss as a device tensor and does not
 synchronise: the loop reads it back a few steps later.
@@ -36,6 +36,7 @@ from torch.profiler import record_function
 
 from bts_tpu_torch.config import Config
 from bts_tpu_torch.data.device_augment import augment_batch
+from bts_tpu_torch.models import check_trainable
 from bts_tpu_torch.parallel.mesh import DataParallel, wrap_data_parallel
 from bts_tpu_torch.training.loss import silog_loss
 from bts_tpu_torch.training.optim import AdamW
@@ -43,9 +44,15 @@ from bts_tpu_torch.training.optim import AdamW
 
 @dataclasses.dataclass
 class TrainState:
+    """What a train step advances; its model must train
+    (``models.check_trainable``)."""
+
     model: nn.Module
     optimizer: AdamW
     step: int = 0
+
+    def __post_init__(self):
+        check_trainable(type(self.model))
 
 
 def autocast_dtype(cfg: Config):
@@ -112,7 +119,7 @@ def forward_loss(model: nn.Module, image: torch.Tensor, depth: torch.Tensor,
     with torch.autocast(image.device.type, dtype=dtype or torch.float32,
                         enabled=dtype is not None):
         outs = model(image, focal)
-    depth_est = outs[4][:, 0]
+    depth_est = outs[-1][:, 0]
     depth_gt = depth[..., 0]
     return silog_loss(depth_est, depth_gt, depth_gt > cfg.depth_mask_min, cfg.variance_focus,
                       group)

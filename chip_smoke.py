@@ -1176,7 +1176,7 @@ def dp_train_rank(path, cfg, dp):
     the same batch, deterministic cuDNN in both."""
     import torch
 
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.parallel.mesh import local_slice
     from bts_tpu_torch.training.optim import create_optimizer
     from bts_tpu_torch.training.state import TrainState, make_train_step
@@ -1235,7 +1235,7 @@ def dp_f32_rank(path, cfg, dp):
     digest and the launches."""
     import torch
 
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.parallel.mesh import local_slice
     from bts_tpu_torch.training.optim import create_optimizer
     from bts_tpu_torch.training.state import TrainState, make_train_step
@@ -1581,7 +1581,7 @@ def phase11(torch, Config, parse_args, create_model, create_optimizer, TrainStat
     x = torch.randn(DP_SERVE_BATCH, 3, 480, 640, generator=gen).cuda()
     focal = torch.full((DP_SERVE_BATCH,), 518.8579).cuda()
     with torch.inference_mode():
-        single = model(x, focal)[4][:, 0].float()
+        single = model(x, focal)[-1][:, 0].float()
     for dtype, tol in (("float32", 1e-4), ("bfloat16", 0.15)):
         fwd = make_sharded_forward(model, ["cuda:0"] * DP_RANKS, scfg.replace(compute_dtype=dtype))
         reset_kernel_counts()
@@ -2738,7 +2738,7 @@ def main():
     from bts_tpu_torch.evaluation.offline import read_ledger
     from bts_tpu_torch.evaluation.online import run_online_eval
     from bts_tpu_torch.evaluation.protocol import prepare_pred_gt
-    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models import create_model
     from bts_tpu_torch.models.convert import load_checkpoint
     from bts_tpu_torch.models.encoders.densenet import DenseLayer
     from bts_tpu_torch.ops import _build, fused_dense, fused_dense_cuda, lpg, lpg_cpu, lpg_cuda
@@ -2870,13 +2870,13 @@ def main():
     x = torch.randn(4, 3, 480, 640, generator=gen).cuda()
     focal = torch.full((4,), 518.8579, device="cuda")
     with torch.inference_mode():
-        f32 = model(x, focal)[4]
+        f32 = model(x, focal)[-1]
         depth = {}
         for dense_impl in ("auto", "eo"):
             model.encoder.dense_impl = dense_impl
             reset_counts()
             with torch.autocast("cuda", dtype=torch.bfloat16):
-                depth[dense_impl] = model(x, focal)[4]
+                depth[dense_impl] = model(x, focal)[-1]
             torch.cuda.synchronize()
             if dense_impl == "eo":
                 eo_path = check_counts("bf16 forward, dense_impl eo", 1, "eo")
@@ -3375,10 +3375,10 @@ def main():
         if dataset == "nyu":
             reset_counts()
             with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
-                bf16 = model(x.cuda(), focal.cuda())[4]
+                bf16 = model(x.cuda(), focal.cuda())[-1]
                 torch.cuda.synchronize()
             tf_launches["bf16 forward nyu 480x640"] = check_counts("TF bf16 forward", 1, "taps")
-            diff = (bf16.float().cpu() - got[4].cpu()).abs().max().item()
+            diff = (bf16.float().cpu() - got[-1].cpu()).abs().max().item()
             if not (torch.isfinite(bf16).all() and diff < 0.15):
                 raise RuntimeError(f"TF bf16 forward: max abs diff to f32 {diff} m")
             print(f"TF graph nyu bf16 against f32 on the card: max abs diff {diff!r} m; launches "

@@ -7,10 +7,13 @@ and moves no launch counter itself. The graphs on the card are checked by
 ``chip_smoke.py``'s phase 15."""
 
 import copy
+import sys
+import types
 
 import pytest
 import torch
 
+from bts_tpu_torch import ops
 from bts_tpu_torch.models import bts, graphed
 from bts_tpu_torch.models.encoders import densenet
 from bts_tpu_torch.ops import lpg_cuda
@@ -39,10 +42,11 @@ class StandIn:
     def replay(self, static, inputs, outputs):
         for s, t in zip(static, inputs):
             s.copy_(t)
-        counts = graphed.launch_counts()
+        counts = {k: getattr(m, a) for k, (m, a) in ops.LAUNCH_COUNTERS.items()}
         for o, n in zip(outputs, self.fn(), strict=True):
             o.copy_(n)
-        graphed._set_launches(counts)  # a replay runs no wrapper
+        for k, (m, a) in ops.LAUNCH_COUNTERS.items():  # a replay runs no wrapper
+            setattr(m, a, counts.get(k, 0))
         return tuple(o.clone() for o in outputs)
 
 
@@ -114,6 +118,38 @@ def test_replays_match_eager_and_count(model, stand_in, monkeypatch):
         assert_equal(model(x, f), want)
         assert counters() == (1, 4, 2)
         assert lpg_cuda.LAUNCHES == 6 * 3
+
+
+def test_a_counter_registered_during_a_capture_counts_its_replays(model, stand_in,
+                                                                  monkeypatch):
+    """A kernel module first imported by the captured forward registers its
+    counter while the capture runs: the capture leaves it at 0, the count it
+    had before, and each replay adds the capture's launches."""
+    kernel = types.ModuleType("late_kernel")
+    monkeypatch.setitem(sys.modules, "late_kernel", kernel)
+    eager_forward = model._forward
+    calls = []
+
+    def launching(*a):
+        calls.append(a)
+        if len(calls) == 2:  # the capture imports the kernel's module
+            kernel.LAUNCHES = 0
+            ops.count_launches("late_kernel", "LAUNCHES")
+        if len(calls) >= 2:
+            kernel.LAUNCHES += 2
+        return eager_forward(*a)
+
+    monkeypatch.setattr(model, "_forward", launching)
+    x, f = inputs()
+    try:
+        with torch.inference_mode():
+            model(x, f)  # eager
+            model(x, f)  # capture and replay
+            assert counters() == (1, 1, 1) and kernel.LAUNCHES == 2
+            model(x, f)
+            assert counters() == (1, 2, 1) and kernel.LAUNCHES == 4
+    finally:
+        ops.LAUNCH_COUNTERS.pop("late_kernel.LAUNCHES", None)
 
 
 def test_call_outputs_survive_the_next_call(model, stand_in):

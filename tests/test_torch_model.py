@@ -11,7 +11,7 @@ from bts_tpu.config import Config
 from bts_tpu.models import bts as jbts
 from bts_tpu.models.convert import convert_state_dict
 from bts_tpu.models.encoders import densenet as jdensenet
-from bts_tpu_torch.models import bts
+from bts_tpu_torch.models import bts, create_model
 from bts_tpu_torch.models.convert import load_checkpoint, state_dict_from_flax
 from bts_tpu_torch.models.encoders import densenet
 
@@ -104,7 +104,7 @@ def test_port_names_are_reference_names():
 
 def test_unported_encoder_and_small_bts_size_raise():
     with pytest.raises(ValueError, match="unknown encoder 'resnet152_bts'"):
-        bts.create_model(Config(encoder="resnet152_bts"))
+        create_model(Config(encoder="resnet152_bts"))
     with pytest.raises(ValueError, match="bts_size"):
         bts.create_model(Config(encoder="densenet121_bts", bts_size=64))
 

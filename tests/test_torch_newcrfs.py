@@ -5,7 +5,8 @@ PSP, 64x96 frames: token maps of 16x24 down to 2x3, so every block pads and
 the shifted ones mask), held to the plain float32 reference
 (``tests/newcrfs_reference.py``) on seeded weights; the window attention's
 plain version against an einsum; a checkpoint in upstream's layout through
-``load_weights``; ``cli.test`` with a one-output model; training refused."""
+``load_weights``; ``cli.test`` with a one-output model; a version added to
+``VERSIONS`` alone served by every serving path; training refused."""
 
 import os
 
@@ -15,14 +16,19 @@ import torch
 from PIL import Image
 
 import newcrfs_reference
+from bts_tpu_torch import ops
+from bts_tpu_torch.apps import live3d
+from bts_tpu_torch.cli import sequence as cli_sequence
 from bts_tpu_torch.cli import test as cli_test
 from bts_tpu_torch.cli import train as cli_train
 from bts_tpu_torch.config import Config
-from bts_tpu_torch.models import bts, graphed, newcrfs
+from bts_tpu_torch.evaluation.online import run_online_eval
+from bts_tpu_torch.models import FAMILIES, check_encoder, create_model, model_class, newcrfs
 from bts_tpu_torch.models.convert import load_weights
 from bts_tpu_torch.models.encoders import swin
 from bts_tpu_torch.ops import window_attention as wa
-from bts_tpu_torch.parallel.mesh import wrap_data_parallel
+from bts_tpu_torch.tools import bench
+from bts_tpu_torch.training.state import TrainState
 
 from torch_threads import one_thread  # noqa: F401 (fixture)
 
@@ -270,7 +276,7 @@ def test_shift_mask_is_swins():
 
 
 def test_kernel_launches_are_counted_by_replays():
-    assert (wa, "LAUNCHES") in graphed.LAUNCH_COUNTERS
+    assert ops.LAUNCH_COUNTERS[f"{wa.__name__}.LAUNCHES"] == (wa, "LAUNCHES")
 
 
 def test_upstream_checkpoint_loads(weights, image, tmp_path):
@@ -317,7 +323,7 @@ def test_cli_test_dumps_large07(nyu_frames, tmp_path, monkeypatch):
     assert cli_test.main(argv) == 0
     names = sorted(os.listdir(tmp_path / "result_tiny" / "raw"))
     assert names == [f"kitchen_0001_rgb_{i:05d}.png" for i in range(3)]
-    model = bts.create_model(Config(encoder="large07", max_depth=10.0)).eval()
+    model = create_model(Config(encoder="large07", max_depth=10.0)).eval()
     x = torch.from_numpy(np.zeros((1, 60, 90, 3), np.float32)).permute(0, 3, 1, 2)
     assert isinstance(model, newcrfs.NeWCRFsModel) and len(model(
         torch.nn.functional.pad(x, (0, 6, 0, 4)), torch.ones(1))) == 1
@@ -327,13 +333,67 @@ def test_cli_test_dumps_large07(nyu_frames, tmp_path, monkeypatch):
 
 
 def test_training_is_refused(monkeypatch):
+    """The one check of ``TRAINS``: at ``cli.train``'s start and in every
+    train step's state."""
     monkeypatch.setitem(newcrfs.VERSIONS, "large07", TINY)
     cfg = Config(encoder="large07")
     with pytest.raises(ValueError, match="served, not trained"):
-        bts.create_model(cfg, training=True)
-    with pytest.raises(ValueError, match="served, not trained"):
         cli_train.main(["--encoder", "large07", "--device", "cpu"])
     with pytest.raises(ValueError, match="served, not trained"):
-        wrap_data_parallel(bts.create_model(cfg), None)
+        TrainState(create_model(cfg), None)
     with pytest.raises(ValueError, match="TF graph"):
-        bts.create_model(cfg.replace(model_flavor="tf"))
+        create_model(cfg.replace(model_flavor="tf"))
+
+
+@pytest.mark.parametrize("name", [n for names, _, _ in FAMILIES for n in sorted(names)])
+def test_every_registered_name_keeps_the_contract(name):
+    """Each name of the zoo is accepted, and its class (built at no size)
+    declares its outputs, the depth last, and whether it trains."""
+    check_encoder(name)
+    cls = model_class(name)
+    assert cls.OUTPUTS[-1] == "depth" and len(set(cls.OUTPUTS)) == len(cls.OUTPUTS)
+    assert isinstance(cls.TRAINS, bool)
+
+
+def test_a_version_added_to_versions_serves_everywhere(nyu_frames, tmp_path, monkeypatch):
+    """The tiny widths under a new name in ``newcrfs.VERSIONS``, and nothing
+    else: ``cli.test`` dumps its depth, ``cli.sequence`` writes its depth png
+    alone, ``cli.live3d``'s ``depth_fn``, ``tools.bench``'s ``depth_map`` and
+    online eval serve it; ``cli.train`` and ``TrainState`` refuse it."""
+    monkeypatch.setitem(newcrfs.VERSIONS, "tiny_newcrfs", TINY)
+    monkeypatch.chdir(tmp_path)
+    cfg = Config(encoder="tiny_newcrfs", dataset="nyu", max_depth=10.0)
+    argv = ["--encoder", "tiny_newcrfs", "--dataset", "nyu", "--max_depth", "10",
+            "--device", "cpu"]
+    assert cli_test.main(argv + ["--data_path", str(nyu_frames), "--filenames_file",
+                                 str(nyu_frames / "files.txt"), "--eval_batch_size", "2",
+                                 "--model_name", "tiny"]) == 0
+    assert len(os.listdir(tmp_path / "result_tiny" / "raw")) == 3
+
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    rng = np.random.default_rng(6)
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 255, (60, 90, 3), dtype=np.uint8)).save(
+            frames / f"frame_{i}.jpg")
+    assert cli_sequence.main(argv + ["--image_dir", str(frames), "--out_dir",
+                                     str(tmp_path / "seq")]) == 0
+    assert sorted(os.listdir(tmp_path / "seq")) == ["frame_0_depth.png", "frame_1_depth.png"]
+
+    depth = live3d.make_depth_fn(cfg, "cpu")(rng.integers(0, 255, (70, 100, 3), dtype=np.uint8))
+    assert depth.shape == (64, 96) and np.isfinite(depth).all()
+
+    model, bcfg = bench.load_form("plain", "tiny_newcrfs", torch.device("cpu"))
+    image = torch.randn(1, 3, H, W, generator=torch.Generator().manual_seed(1))
+    depth = bench.depth_map(model, bcfg, image, torch.ones(1), torch.device("cpu"))
+    assert depth.shape == (1, 1, H, W) and bool(torch.isfinite(depth).all())
+
+    ecfg = cfg.replace(data_path_eval=str(nyu_frames), gt_path_eval=str(nyu_frames),
+                       filenames_file_eval=str(nyu_frames / "files.txt"), eval_batch_size=2)
+    measures = run_online_eval(create_model(ecfg), ecfg, verbose=False)
+    assert measures.shape == (9,) and np.isfinite(measures).all()
+
+    with pytest.raises(ValueError, match="served, not trained"):
+        cli_train.main(argv)
+    with pytest.raises(ValueError, match="served, not trained"):
+        TrainState(create_model(cfg), None)

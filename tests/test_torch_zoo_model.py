@@ -14,7 +14,7 @@ from bts_tpu.config import Config as JConfig
 from bts_tpu.models import bts as jbts
 from bts_tpu.models.convert import convert_state_dict
 from bts_tpu_torch.config import Config, parse_args
-from bts_tpu_torch.models import bts
+from bts_tpu_torch.models import bts, create_model
 from bts_tpu_torch.models.convert import load_checkpoint, state_dict_from_flax
 from bts_tpu_torch.training.checkpoint import load_checkpoint_dict
 
@@ -114,4 +114,4 @@ def test_unknown_encoder_raises():
     with pytest.raises(ValueError, match="unknown encoder 'resnet152_bts'"):
         parse_args(["--encoder", "resnet152_bts"])
     with pytest.raises(ValueError, match="unknown encoder"):
-        bts.create_model(Config(encoder="resnet152_bts"))
+        create_model(Config(encoder="resnet152_bts"))
