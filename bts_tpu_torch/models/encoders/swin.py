@@ -27,6 +27,13 @@ from the grid, gives a padded token the K and V that ``qkv`` makes of zeros
 Patch embedding is a 4x4/4 convolution and a LayerNorm; patch merging
 gathers each 2x2 block of tokens (LayerNorm(4C), Linear(4C, 2C) without
 bias). Drop-path and dropout are inactive in eval and are left out.
+
+Every LayerNorm is ``LayerNorm`` below (``ops/layer_norm``, the kernel on a
+card): float32 arithmetic, as autocast runs ``nn.LayerNorm``, and under
+autocast a norm whose one reader is a Linear or a convolution writes the
+autocast dtype itself. So stage 1's residual stream, which
+``patch_embed.norm`` writes, is float32; stages 2-4 start from
+``PatchMerging.reduction``'s output, in the autocast dtype.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bts_tpu_torch.ops.layer_norm import layer_norm
 from bts_tpu_torch.ops.window_attention import padded_grid, window_attention
 
 MASKED = -100.0  # Swin's additive mask for tokens the cyclic shift brought together
@@ -89,6 +97,24 @@ def shift_mask(hp: int, wp: int, window: int, shift: int, device) -> torch.Tenso
     return _cached_shift_mask(hp, wp, window, shift, device)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last dimension through ``ops/layer_norm``,
+    in float32 whatever the input's dtype. ``to_gemm``: the output's one
+    reader is a Linear or a convolution, which autocast feeds in its own
+    dtype; under autocast such a norm writes that dtype, rounded where the
+    reader would round it. Every other norm writes float32."""
+
+    def __init__(self, dim: int, to_gemm: bool):
+        super().__init__(dim)
+        self.to_gemm = to_gemm
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kind = x.device.type
+        out = (torch.get_autocast_dtype(kind) if self.to_gemm and torch.is_autocast_enabled(kind)
+               else torch.float32)
+        return layer_norm(x, self.weight, self.bias, self.eps, out)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -132,9 +158,9 @@ class SwinTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int):
         super().__init__()
         self.shift = shift
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = LayerNorm(dim, to_gemm=True)  # read by qkv
         self.attn = WindowAttention(dim, window, num_heads)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim, to_gemm=True)  # read by mlp.fc1
         self.mlp = Mlp(dim, MLP_RATIO * dim)
 
     def forward(self, x: torch.Tensor, h: int, w: int, mask: torch.Tensor) -> torch.Tensor:
@@ -146,7 +172,7 @@ class PatchMerging(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
-        self.norm = nn.LayerNorm(4 * dim)
+        self.norm = LayerNorm(4 * dim, to_gemm=True)  # read by reduction
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         b, _, c = x.shape
@@ -185,18 +211,20 @@ class PatchEmbed(nn.Module):
     def __init__(self, embed_dim: int):
         super().__init__()
         self.proj = nn.Conv2d(3, embed_dim, PATCH, stride=PATCH)
-        self.norm = nn.LayerNorm(embed_dim)
+        self.norm = LayerNorm(embed_dim, to_gemm=False)  # stage 1's residual stream
 
     def forward(self, x: torch.Tensor):
         """image (B, 3, H, W) -> tokens (B, h*w, C), h, w."""
         h, w = x.shape[-2:]
         x = self.proj(F.pad(x, (0, (-w) % PATCH, 0, (-h) % PATCH)))
-        return self.norm(x.flatten(2).transpose(1, 2)), x.shape[2], x.shape[3]
+        return self.norm(x.flatten(2).transpose(1, 2).contiguous()), x.shape[2], x.shape[3]
 
 
 class SwinTransformer(nn.Module):
     """image (B, 3, H, W) -> four maps (B, C*2^i, H/2^(i+2), W/2^(i+2)), each
-    after its LayerNorm ``norm<i>``."""
+    after its LayerNorm ``norm<i>``, in float32 (``to_gemm`` false): the
+    model that reads a map sets its norm's ``to_gemm`` where a Linear or a
+    convolution is its one reader."""
 
     def __init__(self, embed_dim: int, depths: Sequence[int], num_heads: Sequence[int],
                  window: int):
@@ -207,7 +235,7 @@ class SwinTransformer(nn.Module):
             BasicLayer(self.num_features[i], depths[i], num_heads[i], window,
                        downsample=i < len(depths) - 1) for i in range(len(depths))])
         for i, c in enumerate(self.num_features):
-            self.add_module(f"norm{i}", nn.LayerNorm(c))
+            self.add_module(f"norm{i}", LayerNorm(c, to_gemm=False))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         b = x.shape[0]

@@ -37,7 +37,9 @@ inference forward on a card replays a CUDA graph of itself
 (``models/graphed.py``). The spans ``newcrfs/encoder`` and
 ``newcrfs/decoder`` name the two halves in a profile; every block's
 attention is one launch of ``ops/window_attention``'s kernel (32 a forward
-for ``large07``). Training is not supported: the kernel has no backward.
+for ``large07``), and every LayerNorm one of ``ops/layer_norm``'s
+(``swin.LayerNorm``; 76 a forward). Training is not supported: the kernels
+have no backward.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
-from bts_tpu_torch.models.encoders.swin import (Mlp, SwinTransformer, relative_position_index,
-                                                shift_mask)
+from bts_tpu_torch.models.encoders.swin import (LayerNorm, Mlp, SwinTransformer,
+                                                relative_position_index, shift_mask)
 from bts_tpu_torch.models.graphed import GraphedForward
 from bts_tpu_torch.ops.window_attention import padded_grid, window_attention
 
@@ -98,9 +100,9 @@ class CRFBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int):
         super().__init__()
         self.shift = shift
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = LayerNorm(dim, to_gemm=True)  # read by qk
         self.attn = CRFWindowAttention(dim, window, num_heads)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim, to_gemm=True)  # read by mlp.fc1
         self.mlp = Mlp(dim, 4 * dim)
 
     def forward(self, x: torch.Tensor, v: torch.Tensor, h: int, w: int,
@@ -137,7 +139,8 @@ class NewCRF(nn.Module):
             if input_dim != embed_dim else None
         self.proj_v = nn.Conv2d(v_dim, embed_dim, 3, padding=1) if v_dim != embed_dim else None
         self.crf_layer = BasicCRFLayer(embed_dim, depth, num_heads, window)
-        self.norm_crf = nn.LayerNorm(embed_dim)
+        # Read by the next level's proj_v (after PixelShuffle) or by disp_head1.
+        self.norm_crf = LayerNorm(embed_dim, to_gemm=True)
 
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         if self.proj_x is not None:
@@ -219,6 +222,11 @@ class NeWCRFsModel(GraphedForward):
         for i in reversed(range(len(crf_dims))):
             self.add_module(f"crf{i}", NewCRF(feats[i], crf_dims[i], v_dims[i], WINDOW,
                                               crf_heads[i], CRF_DEPTH))
+        # norm0-norm2's maps go to their level's proj_x alone, where it has
+        # one; the PSP pools norm3's map in float32.
+        for i in range(len(crf_dims) - 1):
+            norm = getattr(self.backbone, f"norm{i}")
+            norm.to_gemm = getattr(self, f"crf{i}").proj_x is not None
         self.decoder = PSP(feats[-1], psp_channels, POOL_SCALES, psp_groups)
         self.disp_head1 = DispHead(crf_dims[0])
 

@@ -43,6 +43,7 @@ KINDS = (
     ("bn", ("batch_norm", "batchnorm", "bn_")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90_")),
     ("layout", ("nchw", "nhwc", "transpose", "permute", "copy")),
+    ("norm", ("layer_norm", "group_norm")),  # ahead of PyTorch's "vectorized_layer_norm"
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ("pool", ("pool",)),
 )

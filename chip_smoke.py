@@ -271,7 +271,13 @@ Phases, in order; any failure raises and the script exits nonzero:
     the graphs dropped on ``load_state_dict``; the eager and the replayed
     forward profiled (``tools/profile_forward.py``): 32 window-attention
     launches and no roll kernel; the forward's peak memory; ``cli.test
-    --encoder large07`` over 8 frames (``--save_lpg`` refused).
+    --encoder large07`` over 8 frames (``--save_lpg`` refused); the
+    LayerNorm kernel (``ops/layer_norm.py``, Triton) against its plain
+    version at the forward's norm shapes, bf16 and f32 in and out
+    (``LAYER_NORM_TOL``), its device ms beside its byte bound, the plain
+    version's and ``F.layer_norm``'s, and the forward's 76 calls summed;
+    every norm's weight drawn off identity beside the biases; 76 LayerNorm
+    launches and no ``vectorized_layer_norm_kernel`` a forward.
 Each phase's seconds are printed as it ends, and as JSON after phase 16.
 
 The line before the last is the kernels' JSON record (``launches`` from the
@@ -2482,6 +2488,32 @@ WINDOW_ATTN_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2), "float32": dict(rtol=
 WINDOW_ATTN_PEAK = {"bfloat16": 989e12, "float32": 67e12}  # f32: FMAs, no tensor cores
 
 
+# The LayerNorms of the same forward under bf16 autocast (``swin.LayerNorm``):
+# (label, rows, C, input dtype, output dtype, calls), 76 calls. Stage 1's
+# residual stream is float32 (``patch_embed.norm`` writes it); stages 2-4 and
+# the CRF levels carry bf16; a norm read by a Linear or a convolution writes
+# bf16, ``patch_embed.norm`` and ``norm3`` (pooled by the PSP) float32.
+NEWCRFS_NORMS = [("patch_embed", 153600, 192, "bfloat16", "float32", 1),
+                 ("swin stage 1 blocks, norm0", 153600, 192, "float32", "bfloat16", 5),
+                 ("swin merge 1", 38400, 768, "float32", "bfloat16", 1),
+                 ("swin stage 2 blocks, norm1", 38400, 384, "bfloat16", "bfloat16", 5),
+                 ("swin merge 2", 9600, 1536, "bfloat16", "bfloat16", 1),
+                 ("swin stage 3 blocks, norm2", 9600, 768, "bfloat16", "bfloat16", 37),
+                 ("swin merge 3", 2400, 3072, "bfloat16", "bfloat16", 1),
+                 ("swin stage 4 blocks", 2400, 1536, "bfloat16", "bfloat16", 4),
+                 ("norm3", 2400, 1536, "bfloat16", "float32", 1),
+                 ("crf3", 2400, 1024, "bfloat16", "bfloat16", 5),
+                 ("crf2", 9600, 512, "bfloat16", "bfloat16", 5),
+                 ("crf1", 38400, 256, "bfloat16", "bfloat16", 5),
+                 ("crf0", 153600, 128, "bfloat16", "bfloat16", 5)]
+NEWCRFS_NORM_LAUNCHES = 76
+LAYER_NORM_SOURCE = "bts_tpu_torch/ops/layer_norm.py (Triton)"
+# The kernel against its plain version: f32 sums in another order (a
+# two-pass variance against PyTorch's Welford); bf16 outputs may then round
+# one ulp (2^-8 to 2^-7 relative) apart.
+LAYER_NORM_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
+
+
 def window_attn_work(b, h, w, c, heads, pad_rows, shifted, esize, window=7, d=32):
     """(operations, bytes) of one call on the token grid: QK^T and PV over
     every window of the padded grid; q, k, v read and o written once a grid
@@ -2513,6 +2545,68 @@ def window_attn_inputs(torch, b, h, w, c, heads, form, dtype, gen):
     return q, k, v, k_pad, v_pad
 
 
+def check_layer_norm(torch, ln, gen):
+    """Phase 16(f): the LayerNorm kernel against its plain version at each
+    (rows, C) of NEWCRFS_NORMS, for bf16 and f32 inputs and outputs, random
+    affine; its device ms beside its byte bound, the plain version's (the
+    chain autocast runs: cast in, f32 norm, cast out) and ``F.layer_norm``'s
+    on the input as it is (a bf16 input with its affine in bf16; in float32
+    where the output is), then the cast (``library_ms``; the port never
+    calls it). Returns the calls' records by "rows x C in->out" and the
+    forward's sums over its 76 calls."""
+    import torch.nn.functional as F
+
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    calls = {}
+    for rows, c in dict.fromkeys((r, c) for _, r, c, *_ in NEWCRFS_NORMS):
+        w = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        base = 3 + 2 * torch.randn(rows, c, device="cuda", generator=gen)
+        for i_name, o_name in (("bfloat16", "bfloat16"), ("float32", "bfloat16"),
+                               ("bfloat16", "float32"), ("float32", "float32")):
+            x, out = base.to(dtypes[i_name]), dtypes[o_name]
+            got = ln.layer_norm_triton(x, w, b, 1e-5, out)
+            want = ln.layer_norm_plain(x, w, b, 1e-5, out)
+            torch.cuda.synchronize()
+            if got.dtype != out or got.shape != x.shape:
+                raise RuntimeError(f"layer_norm {rows}x{c}: {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            differ = (got != want).float().mean().item()
+            torch.testing.assert_close(got.float(), want.float(), **LAYER_NORM_TOL[o_name])
+            # PyTorch's norm takes its weight in the input's dtype.
+            lib_x = x.float() if x.element_size() < got.element_size() else x
+            lib_w, lib_b = w.to(lib_x.dtype), b.to(lib_x.dtype)
+            ms = cuda_median_ms(lambda: ln.layer_norm_triton(x, w, b, 1e-5, out), samples=20)
+            plain_ms = cuda_median_ms(lambda: ln.layer_norm_plain(x, w, b, 1e-5, out),
+                                      samples=20)
+            library_ms = cuda_median_ms(
+                lambda: F.layer_norm(lib_x, (c,), lib_w, lib_b, 1e-5).to(out), samples=20)
+            nbytes = rows * c * (x.element_size() + got.element_size()) + 8 * c
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            key = f"{rows}x{c} {i_name}->{o_name}"
+            calls[key] = {"max_abs_err": err, "share_differing": differ, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                          "bound_by": "bytes", "roofline_pct": 100 * bound / ms}
+            print(f"layer norm {key}: max abs err {err!r} ({differ:.2e} of outputs differ); "
+                  f"{ms!r} ms, bound {bound!r} ms ({100 * bound / ms:.1f}%), plain "
+                  f"{plain_ms!r} ms, F.layer_norm {library_ms!r} ms", flush=True)
+            del x, got, want, lib_x, lib_w, lib_b
+        del base
+    forward = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for _, rows, c, i_name, o_name, n in NEWCRFS_NORMS:
+        for k in forward:
+            forward[k] += n * calls[f"{rows}x{c} {i_name}->{o_name}"][k]
+    forward["roofline_pct"] = 100 * forward["bound_ms"] / forward["ms"]
+    f32 = {k: sum(calls[f"{rows}x{c} float32->float32"][k] * n
+                  for _, rows, c, *_, n in NEWCRFS_NORMS) for k in ("ms", "library_ms")}
+    print(f"layer norm, a large07 b8 bf16 forward's {NEWCRFS_NORM_LAUNCHES} calls: kernel "
+          f"{forward['ms']!r} ms, bound {forward['bound_ms']!r} ms "
+          f"({forward['roofline_pct']:.1f}%), plain (autocast's chain) {forward['plain_ms']!r} "
+          f"ms, F.layer_norm {forward['library_ms']!r} ms; the same calls f32 in and out: "
+          f"kernel {f32['ms']!r} ms, F.layer_norm {f32['library_ms']!r} ms", flush=True)
+    return calls, {**forward, "float32": f32}
+
+
 def phase16(torch, Config, create_model, smi):
     """Phase 16, NeWCRFs (``models/newcrfs.py``, ``ops/window_attention.py``):
     (a) the window-attention kernel on the token grid against its plain
@@ -2521,20 +2615,26 @@ def phase16(torch, Config, create_model, smi):
     its device ms beside its bound, the plain version's and SDPA's
     (``library_ms``, on windows cut out beforehand; the port never calls
     it); (b) the published ``large07`` at NYU 480x640, batch 8, seeded,
-    every bias drawn at 0.1 * randn so that padded tokens' keys matter: the
+    every bias drawn at 0.1 * randn so that padded tokens' keys matter and
+    every norm's weight at 1 + 0.1 * randn so that the affine matters: the
     bf16 program's depth (graph replay, inference mode) against the float32
     reference (``tests/newcrfs_reference.py``, TF32 off); (c) the replay
-    bit-equal to the eager forward, 32 launches a replay, the graphs dropped
-    on ``load_state_dict``; eager and replay ms and img/s; the eager and the
-    replayed forward profiled by ``tools/profile_forward.py --encoder
-    large07``: 32 ``window_attn_kernel`` launches and no ``roll`` kernel a
-    replay; (d) the forward's peak memory; (e) ``cli.test --encoder
-    large07`` over 8 NYU frames in bf16 at batch 8: 8 pngs, 32 launches a
-    forward, and ``--save_lpg`` refused. Returns the kernel's record."""
+    bit-equal to the eager forward, 32 window-attention and 76 LayerNorm
+    launches a replay, the graphs dropped on ``load_state_dict``; eager and
+    replay ms and img/s; the eager and the replayed forward profiled by
+    ``tools/profile_forward.py --encoder large07``: 32 ``window_attn_kernel``
+    and 76 ``layer_norm_kernel`` launches, no ``roll`` kernel and no
+    ``vectorized_layer_norm_kernel`` a forward; (d) the forward's peak
+    memory; (e) ``cli.test --encoder large07`` over 8 NYU frames in bf16 at
+    batch 8: 8 pngs, 32 and 76 launches a forward, and ``--save_lpg``
+    refused; (f) the LayerNorm kernel against its plain version at the
+    forward's norm shapes (``check_layer_norm``). Returns the two kernels'
+    records."""
     import torch.nn.functional as F
 
     from bts_tpu_torch.cli import test as cli_test
     from bts_tpu_torch.models.encoders.swin import relative_position_index, shift_mask
+    from bts_tpu_torch.ops import layer_norm as ln
     from bts_tpu_torch.ops import window_attention as wa
     from bts_tpu_torch.tools import profile_forward
 
@@ -2589,6 +2689,15 @@ def phase16(torch, Config, create_model, smi):
                   f"{plain_ms!r} ms, SDPA {library_ms!r} ms ({smi})", flush=True)
             del q, k, v, k_pad, v_pad, got, want, full, per
 
+    # (f) the LayerNorm kernel at the forward's norm shapes.
+    norm_calls, norm_forward = check_layer_norm(torch, ln, gen)
+    torch.cuda.empty_cache()
+
+    def launches():
+        return wa.LAUNCHES, ln.LAUNCHES
+
+    want_launches = (NEWCRFS_LAUNCHES, NEWCRFS_NORM_LAUNCHES)
+
     # (b)-(d) the published model, seeded, NYU 480x640 at batch 8.
     cfg = Config(encoder="large07", dataset="nyu", max_depth=10.0, seed=16)
     model = create_model(cfg).cuda().eval()
@@ -2598,27 +2707,30 @@ def phase16(torch, Config, create_model, smi):
         for key, p in model.named_parameters():
             if key.endswith("bias"):
                 p.copy_(0.1 * torch.randn(p.shape, generator=bias_gen))
+            elif key.endswith("weight") and p.dim() == 1:  # every norm's, off identity
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=bias_gen))
     x = torch.randn(8, 3, 480, 640, device="cuda", generator=gen)
     x2 = torch.randn(8, 3, 480, 640, device="cuda", generator=gen)
     focal = torch.full((8,), 518.8579, device="cuda")
     with torch_defaults(torch):
         torch.cuda.reset_peak_memory_stats()
         with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
-            before = wa.LAUNCHES
+            before = launches()
             eager, = model._forward(x, focal)
             torch.cuda.synchronize()
-            eager_launches = wa.LAUNCHES - before
+            eager_launches = tuple(a - b for a, b in zip(launches(), before))
             model(x, focal), model(x, focal)  # eager, then the capture and its replay
-            before = wa.LAUNCHES
+            before = launches()
             replay, = model(x, focal)
             torch.cuda.synchronize()
-            replay_launches = wa.LAUNCHES - before
+            replay_launches = tuple(a - b for a, b in zip(launches(), before))
             peak = torch.cuda.max_memory_allocated()
             eager_ms = call_ms(torch, lambda: model._forward(x2, focal), calls=5)
             replay_ms = call_ms(torch, lambda: model(x2, focal), calls=10)
-        if (eager_launches, replay_launches) != (NEWCRFS_LAUNCHES, NEWCRFS_LAUNCHES):
-            raise RuntimeError(f"large07: {eager_launches} window-attention launches eager, "
-                               f"{replay_launches} a replay, expected {NEWCRFS_LAUNCHES}")
+        if (eager_launches, replay_launches) != (want_launches, want_launches):
+            raise RuntimeError(f"large07: (window-attention, LayerNorm) launches "
+                               f"{eager_launches} eager, {replay_launches} a replay, expected "
+                               f"{want_launches}")
         if not torch.equal(replay, eager):
             raise RuntimeError(f"large07: the replay is {largest_gap(torch, [replay], [eager])} "
                                "from the eager forward")
@@ -2633,7 +2745,7 @@ def phase16(torch, Config, create_model, smi):
         gap = (replay - want).abs()
         absrel, max_m = (gap / want).mean().item(), gap.max().item()
         del ref, want
-        if absrel > 0.01 or max_m > 1.0:
+        if absrel > 0.004 or max_m > 1.0:
             raise RuntimeError(f"large07 bf16 against the f32 reference: absrel {absrel}, "
                                f"max {max_m} m")
         # New weights: the graphs go at once; the new replay matches its eager forward.
@@ -2649,27 +2761,33 @@ def phase16(torch, Config, create_model, smi):
                                "weights' eager forward")
     print(f"large07 ({params} parameters) NYU 480x640 b8 bf16 against the f32 reference: "
           f"depth absrel {absrel!r}, max {max_m!r} m; replay bit-equal to eager, "
-          f"{replay_launches} window-attention launches a replay; ms a batch eager "
+          f"{replay_launches} (window-attention, LayerNorm) launches a replay; ms a batch eager "
           f"{eager_ms[1]!r}, replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.1f} img/s); "
           f"peak {peak} bytes ({smi})", flush=True)
     del model, x, x2, eager, replay, new, new_eager
     torch.cuda.empty_cache()
 
     # (c) The eager and the replayed forward profiled: the window attention
-    # in 32 launches a replay, no roll kernel.
+    # in 32 launches and the LayerNorms in 76 a forward, no roll kernel and
+    # no PyTorch LayerNorm.
     runs = profile_forward.main(["--encoder", "large07", "--batches", "8"])
     for run in runs:
         attn = sum(n for k, n in run["launches"].items() if "window_attn_kernel" in k)
-        rolls = {k: n for k, n in run["launches"].items() if "roll_cuda" in k}
-        if attn != NEWCRFS_LAUNCHES or rolls:
+        norms = sum(n for k, n in run["launches"].items()
+                    if "layer_norm_kernel" in k and "vectorized" not in k)
+        stray = {k: n for k, n in run["launches"].items()
+                 if "roll_cuda" in k or "vectorized_layer_norm" in k}
+        if (attn, norms) != want_launches or stray:
             raise RuntimeError(f"large07 {run['forward']} forward: {attn} window-attention "
-                               f"launches, roll kernels {rolls}")
-    profiles = {f"{r['forward']} {i}": {"device_ms": r["device_ms"], "kernels": r["kernels"],
-                                         "by_kind_ms": r["by_kind_ms"]}
-                for i, r in enumerate(runs)}
-    print(f"large07 profiled b8 bf16: {NEWCRFS_LAUNCHES} window_attn_kernel launches and no "
-          f"roll kernel a forward, eager and replayed; {json.dumps(profiles)} ({smi})",
-          flush=True)
+                               f"and {norms} LayerNorm launches, stray kernels {stray}")
+    profiles = {f"{r['forward']} {i}": {
+        "device_ms": r["device_ms"], "kernels": r["kernels"], "by_kind_ms": r["by_kind_ms"],
+        "copies": {k: n for k, n in r["launches"].items() if "copy" in k.lower()}}
+        for i, r in enumerate(runs)}
+    print(f"large07 profiled b8 bf16: {NEWCRFS_LAUNCHES} window_attn_kernel and "
+          f"{NEWCRFS_NORM_LAUNCHES} layer_norm_kernel launches, no roll kernel and no "
+          f"vectorized_layer_norm_kernel a forward, eager and replayed; {json.dumps(profiles)} "
+          f"({smi})", flush=True)
     torch.cuda.empty_cache()
 
     # (e) cli.test --encoder large07.
@@ -2687,25 +2805,29 @@ def phase16(torch, Config, create_model, smi):
                 raise RuntimeError("cli.test --encoder large07 --save_lpg ran")
             except ValueError as err:
                 print(f"cli.test --encoder large07 --save_lpg refused: {err}")
-            before = wa.LAUNCHES
+            before = launches()
             if cli_test.main(argv) != 0:
                 raise RuntimeError("cli.test --encoder large07 failed")
             torch.cuda.synchronize()
-            launched = wa.LAUNCHES - before
+            launched = tuple(a - b for a, b in zip(launches(), before))
         finally:
             os.chdir(cwd)
         check_pngs(os.path.join(tmp, "result_newcrfs", "raw"), 8, (480, 640), np.uint16)
-    if launched != NEWCRFS_LAUNCHES:
-        raise RuntimeError(f"cli.test --encoder large07: {launched} launches, expected "
-                           f"{NEWCRFS_LAUNCHES} (one forward)")
-    print(f"cli.test --encoder large07: 8 uint16 pngs, {launched} window-attention launches")
+    if launched != want_launches:
+        raise RuntimeError(f"cli.test --encoder large07: (window-attention, LayerNorm) "
+                           f"launches {launched}, expected {want_launches} (one forward)")
+    print(f"cli.test --encoder large07: 8 uint16 pngs, {launched} (window-attention, "
+          f"LayerNorm) launches")
     record = {"name": "window_attention", "route": "triton", "source": WINDOW_ATTN_SOURCE,
               "replaces": None, "launches_per_forward": NEWCRFS_LAUNCHES, "calls": calls,
               "model": {"parameters": params, "depth_absrel": absrel, "depth_max_m": max_m,
                         "eager_ms": eager_ms[1], "replay_ms": replay_ms[1],
                         "peak_bytes": peak, "profiles": profiles}, "device": smi}
-    print(json.dumps({"window_attention": record}))
-    return record
+    norm_record = {"name": "layer_norm", "route": "triton", "source": LAYER_NORM_SOURCE,
+                   "replaces": None, "launches_per_forward": NEWCRFS_NORM_LAUNCHES,
+                   "calls": norm_calls, "forward": norm_forward, "device": smi}
+    print(json.dumps({"window_attention": record, "layer_norm": norm_record}))
+    return record, norm_record
 
 
 
@@ -3495,7 +3617,7 @@ def main():
     phase("15 the graphed inference forward: replays against eager, launches, new weights, ms")
     phase15(torch, Config, create_model, counts, reset_counts, smi)
     phase("16 NeWCRFs: the window-attention kernel, large07 against its reference, cli.test")
-    window_attn = phase16(torch, Config, create_model, smi)
+    window_attn, layer_norm = phase16(torch, Config, create_model, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -3572,6 +3694,7 @@ def main():
         dense_record("eo", "bfloat16", eo_path, 1),
         dense_record("eo", "float32", f32_path["eo"], 1),
         window_attn,
+        layer_norm,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -213,3 +213,27 @@ def test_phase11_launch_accounting(kw, want):
     """A train step launches 3 LPG forward and 3 backward and no fused dense
     kernel; each replica's inference forward 78 taps (DenseNet161) and 3 LPG."""
     assert cs.dp_expected_launches(**kw) == want
+
+
+def test_phase16_norms_are_large07s():
+    """NEWCRFS_NORMS holds each LayerNorm of ``large07`` once, by its width
+    and the dtype it writes under autocast (``to_gemm``), at the rows of a
+    stage's token grid at batch 8 and 480x640."""
+    import collections
+
+    import torch
+
+    from bts_tpu_torch.models import newcrfs
+    from bts_tpu_torch.models.encoders import swin
+
+    with torch.device("meta"):
+        model = newcrfs.NeWCRFsModel(10.0, **newcrfs.VERSIONS["large07"])
+    want = collections.Counter(
+        (m.normalized_shape[0], "bfloat16" if m.to_gemm else "float32")
+        for m in model.modules() if isinstance(m, swin.LayerNorm))
+    got = collections.Counter()
+    for _, rows, c, _, out, n in cs.NEWCRFS_NORMS:
+        got[c, out] += n
+        assert rows in [8 * 120 * 160 // 4 ** k for k in range(4)]
+    assert got == want
+    assert sum(want.values()) == cs.NEWCRFS_NORM_LAUNCHES == 76
