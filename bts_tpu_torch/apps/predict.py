@@ -63,9 +63,11 @@ def load_model(cfg: Config, device: torch.device) -> torch.nn.Module:
 
 
 def forward_padded(model, image: torch.Tensor, focal: torch.Tensor):
-    """Edge-pad H and W up to multiples of 32, run, crop the outputs back."""
+    """Edge-pad H and W up to multiples of the model's ``PAD_MULTIPLE`` (32
+    for a module that declares none), run, crop the outputs back."""
     h, w = image.shape[-2:]
-    ph, pw = (-h) % 32, (-w) % 32
+    multiple = getattr(model, "PAD_MULTIPLE", 32)
+    ph, pw = (-h) % multiple, (-w) % multiple
     if ph or pw:
         image = F.pad(image, (0, pw, 0, ph), mode="replicate")
     return [o[..., :h, :w] for o in model(image, focal)]

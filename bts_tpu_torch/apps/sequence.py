@@ -5,8 +5,8 @@ Reference: tensorflow/bts_sequence.py:59-187. Every '*.png' and '*.jpg' of a
 directory goes through the model at batch 1 with a fixed per-dataset focal
 (NYU 518.8579, KITTI 718.856, or ``--focal``); the depth and, for a model
 whose ``OUTPUTS`` hold them, the three LPG maps are written as colormapped
-pngs. Frames of any size are edge-padded to
-multiples of 32 and the outputs cropped back. The forward runs on the card
+pngs. Frames of any size are edge-padded to multiples of the model's
+``PAD_MULTIPLE`` and the outputs cropped back. The forward runs on the card
 (``--device cpu`` for the CPU) under ``inference_mode``, in bf16 autocast
 under ``--compute_dtype bfloat16``.
 """

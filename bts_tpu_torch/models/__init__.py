@@ -1,20 +1,22 @@
 """The model zoo: which models exist, and how an ``--encoder`` name builds one.
 
 A family is a module of its own with a dict of its ``--encoder`` names, its
-model class (a ``GraphedForward``, which declares ``OUTPUTS`` and
-``TRAINS``) and ``create_model(cfg)``, which builds that class on the CPU
-with weights seeded from ``cfg.seed``. ``FAMILIES`` lists them: BTS (the
-DenseNet, ResNet, ResNeXt and MobileNetV2 encoders with the Dense-ASPP/LPG
-decoder, ``models/bts.py``) and NeWCRFs (``models/newcrfs.py``). A name is
-looked up in its family's dict at each call, so an entry added to the dict
-later counts.
+model class (a ``GraphedForward``, which declares ``OUTPUTS``, ``TRAINS``
+and ``PAD_MULTIPLE``) and ``create_model(cfg)``, which builds that class on
+the CPU with weights seeded from ``cfg.seed``. ``FAMILIES`` lists them: BTS
+(the DenseNet, ResNet, ResNeXt and MobileNetV2 encoders with the
+Dense-ASPP/LPG decoder, ``models/bts.py``), NeWCRFs (``models/newcrfs.py``)
+and Depth Anything V2 (``models/depth_anything.py``). A name is looked up in
+its family's dict at each call, so an entry added to the dict later counts.
 """
 
-from bts_tpu_torch.models import bts, newcrfs
+from bts_tpu_torch.models import bts, depth_anything, newcrfs
 
 # (dict of --encoder names, model class, builder) of each family
 FAMILIES = ((bts.ENCODERS, bts.BTSModel, bts.create_model),
-            (newcrfs.VERSIONS, newcrfs.NeWCRFsModel, newcrfs.create_model))
+            (newcrfs.VERSIONS, newcrfs.NeWCRFsModel, newcrfs.create_model),
+            (depth_anything.VERSIONS, depth_anything.DepthAnythingV2Model,
+             depth_anything.create_model))
 
 
 def _family(name: str) -> tuple:

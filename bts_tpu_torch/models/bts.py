@@ -61,6 +61,7 @@ class BTSModel(GraphedForward):
 
     OUTPUTS = ("lpg8x8", "lpg4x4", "lpg2x2", "reduc1x1", "depth")
     TRAINS = True
+    PAD_MULTIPLE = 32  # the encoders' five stride-2 stages
 
     def __init__(
         self,

@@ -28,7 +28,7 @@ Patch embedding is a 4x4/4 convolution and a LayerNorm; patch merging
 gathers each 2x2 block of tokens (LayerNorm(4C), Linear(4C, 2C) without
 bias). Drop-path and dropout are inactive in eval and are left out.
 
-Every LayerNorm is ``LayerNorm`` below (``ops/layer_norm``, the kernel on a
+Every LayerNorm is ``layers.LayerNorm`` (``ops/layer_norm``, the kernel on a
 card): float32 arithmetic, as autocast runs ``nn.LayerNorm``, and under
 autocast a norm whose one reader is a Linear or a convolution writes the
 autocast dtype itself. So stage 1's residual stream, which
@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bts_tpu_torch.ops.layer_norm import layer_norm
+from bts_tpu_torch.models.layers import LayerNorm, Mlp
 from bts_tpu_torch.ops.window_attention import padded_grid, window_attention
 
 MASKED = -100.0  # Swin's additive mask for tokens the cyclic shift brought together
@@ -95,35 +95,6 @@ def shift_mask(hp: int, wp: int, window: int, shift: int, device) -> torch.Tenso
     if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         return _shift_mask(hp, wp, window, shift, device)
     return _cached_shift_mask(hp, wp, window, shift, device)
-
-
-class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm`` over the last dimension through ``ops/layer_norm``,
-    in float32 whatever the input's dtype. ``to_gemm``: the output's one
-    reader is a Linear or a convolution, which autocast feeds in its own
-    dtype; under autocast such a norm writes that dtype, rounded where the
-    reader would round it. Every other norm writes float32."""
-
-    def __init__(self, dim: int, to_gemm: bool):
-        super().__init__(dim)
-        self.to_gemm = to_gemm
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kind = x.device.type
-        out = (torch.get_autocast_dtype(kind) if self.to_gemm and torch.is_autocast_enabled(kind)
-               else torch.float32)
-        return layer_norm(x, self.weight, self.bias, self.eps, out)
-
-
-class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
-        super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.act = nn.GELU()
-        self.fc2 = nn.Linear(hidden, dim)
-
-    def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
 
 
 class WindowAttention(nn.Module):

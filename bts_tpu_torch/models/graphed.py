@@ -291,7 +291,10 @@ class GraphedForward(nn.Module):
       each (B, 1, H, W) float32, the depth map always last (``"depth"``), so
       a caller that wants the depth takes ``[-1]``;
     - ``TRAINS``: whether this port trains it; a train step refuses a model
-      whose ``TRAINS`` is false (``models.check_trainable``)."""
+      whose ``TRAINS`` is false (``models.check_trainable``);
+    - ``PAD_MULTIPLE``: the multiple that ``apps/predict.forward_padded``
+      edge-pads H and W up to before the forward (1: none, for a model that
+      resizes its frame itself)."""
 
     def __init__(self):
         super().__init__()

@@ -38,13 +38,12 @@ inference forward on a card replays a CUDA graph of itself
 ``newcrfs/decoder`` name the two halves in a profile; every block's
 attention is one launch of ``ops/window_attention``'s kernel (32 a forward
 for ``large07``), and every LayerNorm one of ``ops/layer_norm``'s
-(``swin.LayerNorm``; 76 a forward). Training is not supported: the kernels
+(``layers.LayerNorm``; 76 a forward). Training is not supported: the kernels
 have no backward.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Sequence, Tuple
 
 import torch
@@ -52,9 +51,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
-from bts_tpu_torch.models.encoders.swin import (LayerNorm, Mlp, SwinTransformer,
-                                                relative_position_index, shift_mask)
+from bts_tpu_torch.models.encoders.swin import (SwinTransformer, relative_position_index,
+                                                shift_mask)
 from bts_tpu_torch.models.graphed import GraphedForward
+from bts_tpu_torch.models.layers import LayerNorm, Mlp, seeded_init
 from bts_tpu_torch.ops.window_attention import padded_grid, window_attention
 
 # Upstream's --encoder names and their widths (NewCRFDepth.__init__).
@@ -206,6 +206,7 @@ class NeWCRFsModel(GraphedForward):
 
     OUTPUTS = ("depth",)
     TRAINS = False
+    PAD_MULTIPLE = 32  # Swin's four stages halve the 4x4 patch grid three times
 
     def __init__(self, max_depth: float = 10.0, embed_dim: int = 192,
                  depths: Sequence[int] = (2, 2, 18, 2), num_heads: Sequence[int] = (6, 12, 24, 48),
@@ -243,21 +244,11 @@ class NeWCRFsModel(GraphedForward):
         return (depth,)
 
 
-@torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded init from the CPU ``generator``: Xavier-uniform convolutions and
-    linear layers, biases 0, the bias tables a normal of std 0.02 truncated
-    at +-2 (Swin's), norms at identity."""
-    for name, p in model.named_parameters():
-        if name.endswith("relative_position_bias_table"):
-            p.copy_(nn.init.trunc_normal_(torch.empty(p.shape), std=0.02, generator=generator))
-        elif p.dim() >= 2:
-            fan = math.prod(p.shape[2:])
-            bound = math.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * fan))
-            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
-        else:
-            p.fill_(1.0 if name.endswith("weight") else 0.0)
-    return model
+    """Seeded init from the CPU ``generator`` (``layers.seeded_init``):
+    Xavier-uniform convolutions and linear layers, biases 0, the bias tables
+    a normal of std 0.02 truncated at +-2 (Swin's), norms at identity."""
+    return seeded_init(model, generator, normal=("relative_position_bias_table",))
 
 
 def create_model(cfg) -> NeWCRFsModel:

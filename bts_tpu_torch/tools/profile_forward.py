@@ -7,11 +7,12 @@ default) or float32 (``cli.test``'s default dtype; TF32 off in cuDNN and
 cuBLAS, so the plain convs are f32 too). A model with fused dense layers (a
 DenseNet encoder's ``dense_impl``) runs them at each batch in turns plain,
 ``--dense_impl`` (auto, the taps kernel, by default; or eo), twice, and
-plain. Any other model (``--encoder large07``, NeWCRFs) runs at each batch
-in turns its eager forward (``model._forward``, so that spans such as
-``newcrfs/encoder`` and ``newcrfs/decoder`` show; the device ms a forward
-of the kernels inside each is listed), its replayed forward twice, and the
-eager forward. For each
+plain. Any other model (``--encoder large07``, NeWCRFs; ``dav2_vitl``,
+Depth Anything V2) runs at each batch in turns its eager forward
+(``model._forward``, so that spans such as ``newcrfs/encoder`` and
+``newcrfs/decoder``, or ``dav2/encoder`` and ``dav2/head``, show; the
+device ms a forward of the kernels inside each is listed), its replayed
+forward twice, and the eager forward. For each
 run: ``torch.profiler`` over 3 forwards gives the kernels per forward, the
 launches of each kernel name per forward (``launches``), the
 device time per forward and its split by kind of kernel; the wall time per
@@ -38,6 +39,7 @@ from bts_tpu_torch.tools.benchtools import card
 KINDS = (
     ("fused dense", ("taps_sm90", "taps_f32")),  # both forms' kernels
     ("window attention", ("window_attn",)),
+    ("global attention", ("global_attn",)),
     ("lpg", ("lpg_",)),
     ("cat", ("catarray", "cat_")),
     ("bn", ("batch_norm", "batchnorm", "bn_")),

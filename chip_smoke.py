@@ -278,7 +278,27 @@ Phases, in order; any failure raises and the script exits nonzero:
     version's and ``F.layer_norm``'s, and the forward's 76 calls summed;
     every norm's weight drawn off identity beside the biases; 76 LayerNorm
     launches and no ``vectorized_layer_norm_kernel`` a forward.
-Each phase's seconds are printed as it ends, and as JSON after phase 16.
+17. Depth Anything V2 (``--encoder dav2_vitl``): the global-attention
+    kernel (``ops/global_attention.py``, Triton, read from ``qkv``'s
+    output) against its plain version at the KITTI cell's call (8, 16,
+    4737, 64) and at N = 64, 65, 128 and 1815, bf16 (within one bf16 ulp of
+    the output's largest magnitude) and f32 (1e-5); its device ms beside its
+    bound, the plain version's and SDPA's flash and cuDNN backends
+    (``library_ms``, yardsticks the port never calls), and other tile
+    settings; the published model, seeded, biases, norms and LayerScale
+    drawn off their defaults, at KITTI 352x1216 batch 8 in bf16 and in f32
+    against the float32 reference (``tests/depth_anything_reference.py``,
+    TF32 off; ``DAV2_GATES``); the
+    replay bit for bit against the eager forward with 24 global-attention
+    and 52 LayerNorm launches; eager and replay ms, peak memory; the eager
+    and the replayed forward profiled at 352x1216 with the device ms inside
+    the spans ``dav2/encoder`` and ``dav2/head``, and by
+    ``tools/profile_forward.py --encoder dav2_vitl``; ``cli.test --encoder
+    dav2_vitl --dataset kitti --max_depth 80`` over 8 KITTI frames after
+    ``kb_crop``; the cell's check (``benchmark/``) of the program and of each
+    planted fault of ``tests/test_torch_depth_anything.py`` at the cell's
+    size, against its limits.
+Each phase's seconds are printed as it ends, and as JSON after phase 17.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps (a replayed forward's from
@@ -2488,7 +2508,7 @@ WINDOW_ATTN_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2), "float32": dict(rtol=
 WINDOW_ATTN_PEAK = {"bfloat16": 989e12, "float32": 67e12}  # f32: FMAs, no tensor cores
 
 
-# The LayerNorms of the same forward under bf16 autocast (``swin.LayerNorm``):
+# The LayerNorms of the same forward under bf16 autocast (``layers.LayerNorm``):
 # (label, rows, C, input dtype, output dtype, calls), 76 calls. Stage 1's
 # residual stream is float32 (``patch_embed.norm`` writes it); stages 2-4 and
 # the CRF levels carry bf16; a norm read by a Linear or a convolution writes
@@ -2829,6 +2849,313 @@ def phase16(torch, Config, create_model, smi):
     print(json.dumps({"window_attention": record, "layer_norm": norm_record}))
     return record, norm_record
 
+
+DAV2_SHAPE = (8, 16, 4737, 64)  # the KITTI cell's call: (B, heads, N, d)
+DAV2_LAUNCHES = (24, 52)  # global attention, LayerNorm: a dav2_vitl forward
+GLOBAL_ATTN_SOURCE = "bts_tpu_torch/ops/global_attention.py (Triton)"
+GLOBAL_ATTN_PEAK = {"bfloat16": 989e12, "float32": 67e12}  # f32: FMAs, no tensor cores
+# Tile settings (BLOCK_M, BLOCK_N, warps, stages) timed beside the kernel's own.
+GLOBAL_ATTN_CONFIGS = [(128, 64, 4, 3), (128, 64, 8, 3), (128, 64, 8, 4), (128, 128, 8, 3),
+                       (64, 64, 8, 3), (128, 32, 4, 4)]
+# The published model, seeded and drawn off its defaults, at KITTI's frame,
+# batch 8, against the f32 reference: the f32 forward (TF32 off) computes
+# the reference's equations in another order (1e-5 relative measured); the
+# bf16 forward differs by bf16's rounding, amplified through 24 blocks and
+# the head into the sigmoid's logit (0.019-0.030 AbsRel and 2.1-3.8 m
+# measured with these weights; the cell's float8 control reads 17-40 m).
+DAV2_GATES = {"float32": (1e-4, 0.01), "bfloat16": (0.06, 10.0)}
+
+
+def global_attn_check(torch, ga, b, n, dtype, gen):
+    """The kernel against its plain version (one image at a time) on q, k,
+    v as views of one (b, n, 3, 16, 64) ``qkv`` output: (inputs, max abs
+    error, tolerance). bf16 within one bf16 ulp of the output's largest
+    magnitude, f32 within 1e-5."""
+    qkv = torch.randn(b, n, 3, 16, 64, device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = ga.global_attention_triton(q, k, v, 0.125)
+    want = torch.cat([ga.global_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], 0.125)
+                      for i in range(b)])
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+           if dtype == torch.bfloat16 else 1e-5)
+    if got.shape != (b, n, 16 * 64) or got.dtype != dtype or not err <= tol:
+        raise RuntimeError(f"global attention ({b}, 16, {n}, 64) {dtype}: max abs error {err} "
+                           f"over {tol}, {tuple(got.shape)} {got.dtype}")
+    return (q, k, v), err, tol
+
+
+def dav2_perturb(torch, model, seed):
+    """Every bias at 0.1 * randn, every norm's weight and LayerScale at
+    1 + 0.1 * randn: the seeded defaults (0 and 1) would hide them."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            if key.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif key.endswith(("weight", "gamma")) and p.dim() == 1:
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen))
+
+
+def write_kitti_frames(root, n=8, h=375, w=1242):
+    """``n`` seeded KITTI-sized frames (kb_crop takes them to 352x1216) and
+    their manifest, gt 'None'."""
+    rng = np.random.default_rng(17)
+    rel = "2011_09_26/2011_09_26_drive_0002_sync/image_02/data"
+    os.makedirs(os.path.join(root, rel))
+    lines = []
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(root, rel, f"{i:010d}.png"))
+        lines.append(f"{rel}/{i:010d}.png None 721.5377")
+    manifest = os.path.join(root, "files.txt")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return manifest
+
+
+def dav2_cell_checks(torch):
+    """The KITTI cell's check (``benchmark/drivers/serve_closed.py``: seeded
+    weights and frames, the dumper's calls for 2 s, the kept depth maps
+    against the float32 reference) of the program and of each planted
+    fault of ``tests/test_torch_depth_anything.py``, monkeypatched in:
+    {name: (depth_absrel, depth_max_m, within the cell's limits)}."""
+    import pytest
+
+    import test_torch_depth_anything as faults
+    from benchmark import spec
+    from benchmark.drivers import serve_closed
+    from bts_tpu_torch.models import depth_anything
+    from bts_tpu_torch.models.encoders import vit
+
+    cell = spec.cell(spec.benchmark(), "kitti-dav2l-serve-b8")
+    config, traffic = spec.config(cell["config"]), spec.traffic(cell["traffic"])
+    limits = spec.limits(cell["name"])
+    patches = {
+        "sound": [],
+        "no attention scale": [(vit, "global_attention",
+                                faults.fake_no_scale(vit.global_attention))],
+        "pos-embed by size": [(vit.DinoVisionTransformer, "position_embedding",
+                               faults.pos_by_size)],
+        "LayerScale dropped": [(vit.LayerScale, "forward", lambda self, x: x)],
+        "class token not a key": [(vit, "global_attention",
+                                   faults.fake_cls_not_a_key(vit.global_attention))],
+        "taps off by one": [(vit.DinoVisionTransformer, "forward",
+                             faults.taps_before_their_block)],
+        "head resize corners off": [(depth_anything, "F", faults.CornersOff())],
+    }
+    out = {}
+    for i, (name, sets) in enumerate(patches.items()):
+        with pytest.MonkeyPatch.context() as mp:
+            for obj, attr, value in sets:
+                mp.setattr(obj, attr, value)
+            serving = serve_closed.Driver(config, traffic, 2400017 + i, torch.device("cuda"))
+            serving.window(2.0)
+            serving.release()
+        numbers = serving.check()
+        held = all(numbers[k] <= v for k, v in limits.items())
+        out[name] = (numbers["depth_absrel"], numbers["depth_max_m"], held)
+        print(f"kitti-dav2l-serve-b8 check, {name}: depth_absrel {numbers['depth_absrel']!r}, "
+              f"depth_max_m {numbers['depth_max_m']!r}, within {limits}: {held}", flush=True)
+        del serving
+        torch.cuda.empty_cache()
+    if not out["sound"][2]:
+        raise RuntimeError(f"kitti-dav2l-serve-b8: the program's check fails: {out['sound']}")
+    return out
+
+
+def phase17(torch, Config, create_model, smi):
+    """Phase 17, Depth Anything V2 (``models/depth_anything.py``,
+    ``models/encoders/vit.py``, ``ops/global_attention.py``): the steps of
+    the docstring's item 17. Returns the kernel's record."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from bts_tpu_torch.cli import test as cli_test
+    from bts_tpu_torch.ops import global_attention as ga
+    from bts_tpu_torch.ops import layer_norm as ln
+    from bts_tpu_torch.tools import profile_forward
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import depth_anything_reference
+
+    # (a) the kernel at the cell's call and at small N, both dtypes.
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    b, heads, n, d = DAV2_SHAPE
+    calls = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for nb, nn_ in ((2, 64), (2, 65), (2, 128), (2, 1815), (b, n)):
+            (q, k, v), err, tol = global_attn_check(torch, ga, nb, nn_, dtype, gen)
+            calls[f"({nb}, 16, {nn_}, 64) {name}"] = {"max_abs_err": err, "tolerance": tol}
+            print(f"global attention ({nb}, 16, {nn_}, 64) {name}: max abs error {err!r} "
+                  f"(tolerance {tol!r})", flush=True)
+        ops, nbytes = 4 * b * heads * n * n * d, 4 * b * heads * n * d * q.element_size()
+        t_ops, t_bytes = ops / GLOBAL_ATTN_PEAK[name] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        ms = cuda_median_ms(lambda: ga.global_attention_triton(q, k, v, 0.125), samples=10,
+                            reps=3)
+        plain_ms = cuda_median_ms(lambda: ga.global_attention_plain(q[:1], k[:1], v[:1], 0.125),
+                                  samples=3, reps=1, warmup=1) * b
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        library = {}
+        for label, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                               ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+            try:
+                with sdpa_kernel([backend]):
+                    library[label] = cuda_median_ms(
+                        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125),
+                        samples=10, reps=3)
+            except RuntimeError as err:  # the backend does not take this dtype or layout
+                library[label] = None
+                print(f"SDPA {label} {name}: {str(err).splitlines()[0]}", flush=True)
+        tiles = {}
+        if dtype == torch.bfloat16:
+            for config in GLOBAL_ATTN_CONFIGS:
+                got = ga.global_attention_triton(q, k, v, 0.125, config)
+                want = ga.global_attention_triton(q, k, v, 0.125)
+                torch.cuda.synchronize()
+                gap = (got.float() - want.float()).abs().max().item()
+                tiles[str(config)] = cuda_median_ms(
+                    lambda: ga.global_attention_triton(q, k, v, 0.125, config), samples=10,
+                    reps=3)
+                print(f"global attention tiles {config}: {tiles[str(config)]!r} ms "
+                      f"({100 * bound / tiles[str(config)]:.1f}% of the bound), "
+                      f"{gap!r} from the kernel's own", flush=True)
+        calls[f"cell {name}"] = {"shape": list(DAV2_SHAPE), "ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": library, "bound_ms": bound,
+                                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                                 "roofline_pct": 100 * bound / ms, "tiles_ms": tiles}
+        print(f"global attention {DAV2_SHAPE} {name} (tiles {ga.CONFIGS[dtype]}): {ms!r} ms, "
+              f"bound {bound!r} ms ({100 * bound / ms:.1f}%), {ops / ms / 1e9:.1f} TFLOP/s, "
+              f"plain {plain_ms!r} ms, SDPA {library} ({smi})", flush=True)
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+
+    def launches():
+        return ga.LAUNCHES, ln.LAUNCHES
+
+    # (b)-(c) the published model, seeded, KITTI 352x1216 at batch 8.
+    cfg = Config(encoder="dav2_vitl", dataset="kitti", max_depth=80.0, seed=17)
+    model = create_model(cfg).cuda().eval()
+    params = sum(p.numel() for p in model.parameters())
+    dav2_perturb(torch, model, 17)
+    x = torch.randn(8, 3, 352, 1216, device="cuda", generator=gen)
+    x2 = torch.randn(8, 3, 352, 1216, device="cuda", generator=gen)
+    focal = torch.full((8,), 721.5377, device="cuda")
+    with torch_defaults(torch):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            before = launches()
+            eager, = model._forward(x, focal)
+            torch.cuda.synchronize()
+            eager_launches = tuple(a - b_ for a, b_ in zip(launches(), before))
+            model(x, focal), model(x, focal)  # eager, then the capture and its replay
+            before = launches()
+            replay, = model(x, focal)
+            torch.cuda.synchronize()
+            replay_launches = tuple(a - b_ for a, b_ in zip(launches(), before))
+            peak = torch.cuda.max_memory_allocated()
+            eager_ms = call_ms(torch, lambda: model._forward(x2, focal), calls=5)
+            replay_ms = call_ms(torch, lambda: model(x2, focal), calls=10)
+        if (eager_launches, replay_launches) != (DAV2_LAUNCHES, DAV2_LAUNCHES):
+            raise RuntimeError(f"dav2_vitl: (global-attention, LayerNorm) launches "
+                               f"{eager_launches} eager, {replay_launches} a replay, expected "
+                               f"{DAV2_LAUNCHES}")
+        if not torch.equal(replay, eager):
+            raise RuntimeError(f"dav2_vitl: the replay is {largest_gap(torch, [replay], [eager])}"
+                               " from the eager forward")
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                               "configs", "dav2-kitti-vitl-metric.json")) as f:
+            ref = depth_anything_reference.DepthAnythingV2(json.load(f)).cuda().eval()
+        ref.load_state_dict({k.replace(".gamma", ".weight"): v
+                             for k, v in model.state_dict().items()})
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            want = torch.cat([ref(x[i:i + 2], focal[i:i + 2]) for i in range(0, 8, 2)])
+            del ref
+            with torch.inference_mode():
+                full, = model(x, focal)  # f32, through the kernels' f32 forms
+        torch.backends.cudnn.allow_tf32 = True
+        gaps = {}
+        for name, got in (("bfloat16", replay), ("float32", full)):
+            gap = (got - want).abs()
+            gaps[name] = ((gap / want).mean().item(), gap.max().item())
+            if gaps[name][0] > DAV2_GATES[name][0] or gaps[name][1] > DAV2_GATES[name][1]:
+                raise RuntimeError(f"dav2_vitl {name} against the f32 reference: (absrel, max m) "
+                                   f"{gaps[name]}, gates {DAV2_GATES[name]}")
+        absrel, max_m = gaps["bfloat16"]
+        del want, full
+    print(f"dav2_vitl ({params} parameters) KITTI 352x1216 b8 against the f32 reference: "
+          f"(depth absrel, max m) {gaps}; replay bit-equal to eager, "
+          f"{replay_launches} (global-attention, LayerNorm) launches a replay; ms a batch eager "
+          f"{eager_ms[1]!r}, replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.1f} img/s); peak "
+          f"{peak} bytes ({smi})", flush=True)
+
+    # (c) the eager and the replayed forward profiled at the cell's size.
+    profiles = {}
+    for i, eager_run in enumerate((True, False, False, True)):
+        run = profile_forward.profile_run(model, x, focal, None, eager=eager_run)
+        attn = sum(c for k_, c in run["launches"].items() if "global_attn_kernel" in k_)
+        norms = sum(c for k_, c in run["launches"].items()
+                    if "layer_norm_kernel" in k_ and "vectorized" not in k_)
+        if (attn, norms) != DAV2_LAUNCHES:
+            raise RuntimeError(f"dav2_vitl {run['forward']} forward: {attn} global-attention "
+                               f"and {norms} LayerNorm launches")
+        if eager_run and not {"dav2/encoder", "dav2/head"} <= set(run.get("spans_ms", {})):
+            raise RuntimeError(f"dav2_vitl eager profile without its spans: {run.get('spans_ms')}")
+        profiles[f"{run['forward']} {i}"] = {k_: run[k_] for k_ in (
+            "device_ms", "wall_ms", "kernels", "by_kind_ms", "top_kernels_ms")}
+        profiles[f"{run['forward']} {i}"]["spans_ms"] = {
+            k_: v_ for k_, v_ in run.get("spans_ms", {}).items() if k_.startswith("dav2/")}
+    print(f"dav2_vitl profiled b8 352x1216 bf16: {json.dumps(profiles)} ({smi})", flush=True)
+    del model, x, x2, eager, replay
+    torch.cuda.empty_cache()
+    runs = profile_forward.main(["--encoder", "dav2_vitl", "--batches", "8"])
+    for run in runs:
+        attn = sum(c for k_, c in run["launches"].items() if "global_attn_kernel" in k_)
+        if attn != DAV2_LAUNCHES[0] or (run["forward"] == "eager"
+                                        and "dav2/encoder" not in run.get("spans_ms", {})):
+            raise RuntimeError(f"profile_forward --encoder dav2_vitl: {attn} global-attention "
+                               f"launches, spans {run.get('spans_ms')}")
+    torch.cuda.empty_cache()
+
+    # (d) cli.test --encoder dav2_vitl over 8 KITTI frames.
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = write_kitti_frames(os.path.join(tmp, "data"))
+        argv = ["--encoder", "dav2_vitl", "--dataset", "kitti", "--max_depth", "80",
+                "--do_kb_crop", "--compute_dtype", "bfloat16", "--eval_batch_size", "8",
+                "--data_path", os.path.join(tmp, "data"), "--filenames_file", manifest,
+                "--model_name", "dav2"]
+        os.chdir(tmp)
+        try:
+            before = launches()
+            if cli_test.main(argv) != 0:
+                raise RuntimeError("cli.test --encoder dav2_vitl failed")
+            torch.cuda.synchronize()
+            launched = tuple(a - b_ for a, b_ in zip(launches(), before))
+        finally:
+            os.chdir(cwd)
+        check_pngs(os.path.join(tmp, "result_dav2", "raw"), 8, (352, 1216), np.uint16)
+    if launched != DAV2_LAUNCHES:
+        raise RuntimeError(f"cli.test --encoder dav2_vitl: (global-attention, LayerNorm) "
+                           f"launches {launched}, expected {DAV2_LAUNCHES} (one forward)")
+    print(f"cli.test --encoder dav2_vitl --dataset kitti: 8 uint16 pngs of 352x1216, "
+          f"{launched} (global-attention, LayerNorm) launches", flush=True)
+
+    # (e) the cell's check of the program and of each planted fault.
+    checks = dav2_cell_checks(torch)
+    record = {"name": "global_attention", "route": "triton", "source": GLOBAL_ATTN_SOURCE,
+              "replaces": None, "launches_per_forward": DAV2_LAUNCHES[0], "calls": calls,
+              "model": {"parameters": params, "depth_absrel": absrel, "depth_max_m": max_m,
+                        "float32": gaps["float32"],
+                        "eager_ms": eager_ms[1], "replay_ms": replay_ms[1], "peak_bytes": peak,
+                        "profiles": profiles},
+              "cell_checks": checks, "device": smi}
+    print(json.dumps({"global_attention": record}))
+    return record
 
 
 def main():
@@ -3618,6 +3945,9 @@ def main():
     phase15(torch, Config, create_model, counts, reset_counts, smi)
     phase("16 NeWCRFs: the window-attention kernel, large07 against its reference, cli.test")
     window_attn, layer_norm = phase16(torch, Config, create_model, smi)
+    phase("17 Depth Anything V2: the global-attention kernel, dav2_vitl against its "
+          "reference, cli.test, the cell's check and its planted faults")
+    global_attn = phase17(torch, Config, create_model, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 
@@ -3695,6 +4025,7 @@ def main():
         dense_record("eo", "float32", f32_path["eo"], 1),
         window_attn,
         layer_norm,
+        global_attn,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""``ops/layer_norm`` and ``swin.LayerNorm`` on the CPU: the plain version
+"""``ops/layer_norm`` and ``layers.LayerNorm`` on the CPU: the plain version
 against a float64 LayerNorm for float32 and bfloat16 inputs and outputs;
 the kernel's program shapes at every width of ``large07``; the dtype that
 each norm of the tiny NeWCRFs (``test_torch_newcrfs.TINY``) writes under
@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from bts_tpu_torch import ops
-from bts_tpu_torch.models import newcrfs
+from bts_tpu_torch.models import layers, newcrfs
 from bts_tpu_torch.models.encoders import swin
 from bts_tpu_torch.ops import layer_norm as ln
 from test_torch_newcrfs import TINY
@@ -105,7 +105,7 @@ def test_program_shapes(c):
 def test_norm_writes_the_gemm_dtype_under_autocast():
     gen = torch.Generator().manual_seed(2)
     x = torch.randn(2, 3, 64, generator=gen)
-    gemm, stream = swin.LayerNorm(64, to_gemm=True), swin.LayerNorm(64, to_gemm=False)
+    gemm, stream = layers.LayerNorm(64, to_gemm=True), layers.LayerNorm(64, to_gemm=False)
     assert list(gemm.state_dict()) == ["weight", "bias"] and gemm.eps == EPS
     with torch.no_grad():
         with torch.autocast("cpu", dtype=torch.bfloat16):
@@ -126,7 +126,7 @@ def norm_dtypes(model, image, **autocast):
     norms, blocks = {}, {}
     hooks = []
     for name, m in model.named_modules():
-        if isinstance(m, swin.LayerNorm):
+        if isinstance(m, layers.LayerNorm):
             hooks.append(m.register_forward_hook(
                 lambda m, i, o, n=name: norms.__setitem__(n, o.dtype)))
         elif isinstance(m, swin.SwinTransformerBlock):
@@ -185,7 +185,7 @@ def test_affine_moves_the_depth(tiny, image, monkeypatch, mutation):
     gen = torch.Generator().manual_seed(4)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, swin.LayerNorm):
+            if isinstance(m, layers.LayerNorm):
                 m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen))
                 m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
     focal = torch.full((1,), 518.8579)

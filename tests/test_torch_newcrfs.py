@@ -348,11 +348,13 @@ def test_training_is_refused(monkeypatch):
 @pytest.mark.parametrize("name", [n for names, _, _ in FAMILIES for n in sorted(names)])
 def test_every_registered_name_keeps_the_contract(name):
     """Each name of the zoo is accepted, and its class (built at no size)
-    declares its outputs, the depth last, and whether it trains."""
+    declares its outputs, the depth last, whether it trains, and the
+    multiple ``forward_padded`` pads its frames to."""
     check_encoder(name)
     cls = model_class(name)
     assert cls.OUTPUTS[-1] == "depth" and len(set(cls.OUTPUTS)) == len(cls.OUTPUTS)
     assert isinstance(cls.TRAINS, bool)
+    assert isinstance(cls.PAD_MULTIPLE, int) and cls.PAD_MULTIPLE >= 1
 
 
 def test_a_version_added_to_versions_serves_everywhere(nyu_frames, tmp_path, monkeypatch):

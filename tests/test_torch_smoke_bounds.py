@@ -223,17 +223,34 @@ def test_phase16_norms_are_large07s():
 
     import torch
 
-    from bts_tpu_torch.models import newcrfs
-    from bts_tpu_torch.models.encoders import swin
+    from bts_tpu_torch.models import layers, newcrfs
 
     with torch.device("meta"):
         model = newcrfs.NeWCRFsModel(10.0, **newcrfs.VERSIONS["large07"])
     want = collections.Counter(
         (m.normalized_shape[0], "bfloat16" if m.to_gemm else "float32")
-        for m in model.modules() if isinstance(m, swin.LayerNorm))
+        for m in model.modules() if isinstance(m, layers.LayerNorm))
     got = collections.Counter()
     for _, rows, c, _, out, n in cs.NEWCRFS_NORMS:
         got[c, out] += n
         assert rows in [8 * 120 * 160 // 4 ** k for k in range(4)]
     assert got == want
     assert sum(want.values()) == cs.NEWCRFS_NORM_LAUNCHES == 76
+
+
+def test_phase17_launches_are_dav2s():
+    """DAV2_LAUNCHES holds ``dav2_vitl``'s global attentions (one a block up
+    to the last tap) and LayerNorms (two a block and one a tap), and
+    DAV2_SHAPE its call at the KITTI cell's batch 8 and 352x1216."""
+    import torch
+
+    from bts_tpu_torch.models import depth_anything, layers
+    from bts_tpu_torch.models.encoders import vit
+
+    with torch.device("meta"):
+        model = depth_anything.DepthAnythingV2Model(80.0, **depth_anything.VERSIONS["dav2_vitl"])
+    blocks = max(model.pretrained.taps) + 1
+    norms = sum(isinstance(m, layers.LayerNorm) for m in model.pretrained.blocks[:blocks].modules())
+    assert cs.DAV2_LAUNCHES == (blocks, norms + len(model.pretrained.taps)) == (24, 52)
+    mh, mw = depth_anything.model_input(352, 1216, model.input_size)
+    assert cs.DAV2_SHAPE == (8, 16, (mh // vit.PATCH) * (mw // vit.PATCH) + 1, 64)
