@@ -44,8 +44,10 @@ the model resizes its frame itself). An inference forward on a card
 replays a CUDA graph of itself (``models/graphed.py``). The spans
 ``dav2/encoder`` and ``dav2/head`` name the two parts in a profile; every
 block's attention is one launch of ``ops/global_attention``'s kernel (24 a
-forward for ``dav2_vitl``), and every LayerNorm one of ``ops/layer_norm``'s
-(52). Training is not supported: the kernels have no backward.
+forward for ``dav2_vitl``), every LayerNorm one of ``ops/layer_norm``'s
+(52), and every bilinear resize one of ``ops/resize``'s (6: the head's five
+write the dtype the next convolution reads, the depth's float32). Training
+is not supported: the kernels have no backward.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ from torch.profiler import record_function
 
 from bts_tpu_torch.models.encoders.vit import PATCH, DinoVisionTransformer
 from bts_tpu_torch.models.graphed import GraphedForward
-from bts_tpu_torch.models.layers import seeded_init
+from bts_tpu_torch.models.layers import gemm_dtype, seeded_init
+from bts_tpu_torch.ops.resize import bilinear
 
 # --encoder names and their widths (upstream's DINOv2('vitl'), dpt.py's
 # intermediate_layer_idx['vitl'] and model_configs['vitl'], run.py's
@@ -107,8 +110,8 @@ class FeatureFusionBlock(nn.Module):
         if skip is not None:
             x = x + self.resConfUnit1(skip)
         x = self.resConfUnit2(x)
-        resize = dict(size=tuple(size)) if size is not None else dict(scale_factor=2)
-        return self.out_conv(F.interpolate(x, **resize, mode="bilinear", align_corners=True))
+        size = size if size is not None else (2 * x.shape[2], 2 * x.shape[3])
+        return self.out_conv(bilinear(x, size, True, gemm_dtype(x)))
 
 
 class DPTHead(nn.Module):
@@ -146,8 +149,8 @@ class DPTHead(nn.Module):
         p = s.refinenet3(p, l3, size=l2.shape[2:])
         p = s.refinenet2(p, l2, size=l1.shape[2:])
         p = s.refinenet1(p, l1)
-        x = F.interpolate(s.output_conv1(p), (h * PATCH, w * PATCH), mode="bilinear",
-                          align_corners=True)
+        p = s.output_conv1(p)
+        x = bilinear(p, (h * PATCH, w * PATCH), True, gemm_dtype(p))
         conv, relu, last, sigmoid = s.output_conv2
         x = relu(conv(x))
         with torch.autocast(x.device.type, enabled=False):
@@ -182,8 +185,7 @@ class DepthAnythingV2Model(GraphedForward):
         with record_function("dav2/head"):
             depth = self.depth_head(feats, mh // PATCH, mw // PATCH)
             with torch.autocast(depth.device.type, enabled=False):
-                depth = F.interpolate(depth * self.max_depth, (h, w), mode="bilinear",
-                                      align_corners=True)
+                depth = bilinear(depth * self.max_depth, (h, w), True, torch.float32)
         return (depth,)
 
 

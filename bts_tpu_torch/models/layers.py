@@ -94,6 +94,13 @@ def downsample_nearest_ac(x: torch.Tensor, inv_scale: int) -> torch.Tensor:
     return x.index_select(-1, _ac_index(w, w // inv_scale, x.device))
 
 
+def gemm_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a Linear or a convolution reads x in: autocast's where it
+    is on for x's device, else float32."""
+    kind = x.device.type
+    return torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else torch.float32
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` over the last dimension through ``ops/layer_norm``,
     in float32 whatever the input's dtype. ``to_gemm``: the output's one
@@ -106,9 +113,7 @@ class LayerNorm(nn.LayerNorm):
         self.to_gemm = to_gemm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kind = x.device.type
-        out = (torch.get_autocast_dtype(kind) if self.to_gemm and torch.is_autocast_enabled(kind)
-               else torch.float32)
+        out = gemm_dtype(x) if self.to_gemm else torch.float32
         return layer_norm(x, self.weight, self.bias, self.eps, out)
 
 

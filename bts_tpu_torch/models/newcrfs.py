@@ -37,9 +37,11 @@ inference forward on a card replays a CUDA graph of itself
 (``models/graphed.py``). The spans ``newcrfs/encoder`` and
 ``newcrfs/decoder`` name the two halves in a profile; every block's
 attention is one launch of ``ops/window_attention``'s kernel (32 a forward
-for ``large07``), and every LayerNorm one of ``ops/layer_norm``'s
-(``layers.LayerNorm``; 76 a forward). Training is not supported: the kernels
-have no backward.
+for ``large07``), every LayerNorm one of ``ops/layer_norm``'s
+(``layers.LayerNorm``; 76 a forward), and every bilinear resize one of
+``ops/resize``'s (5 a forward, each writing float32: the PSP's four, which
+the bottleneck convolution rounds with the rest of the concatenation, and
+the depth's). Training is not supported: the kernels have no backward.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from bts_tpu_torch.models.encoders.swin import (SwinTransformer, relative_positi
                                                 shift_mask)
 from bts_tpu_torch.models.graphed import GraphedForward
 from bts_tpu_torch.models.layers import LayerNorm, Mlp, seeded_init
+from bts_tpu_torch.ops.resize import bilinear
 from bts_tpu_torch.ops.window_attention import padded_grid, window_attention
 
 # Upstream's --encoder names and their widths (NewCRFDepth.__init__).
@@ -184,8 +187,8 @@ class PSP(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         x = feats[-1]
-        pooled = [F.interpolate(m(x), size=x.shape[2:], mode="bilinear", align_corners=False)
-                  for m in self.psp_modules]
+        # float32, as norm3's map x: the bottleneck rounds the concatenation.
+        pooled = [bilinear(m(x), x.shape[2:], False, torch.float32) for m in self.psp_modules]
         return self.bottleneck(torch.cat([x, *pooled], 1))
 
 
@@ -196,7 +199,7 @@ class DispHead(nn.Module):
 
     def forward(self, x: torch.Tensor, scale: int) -> torch.Tensor:
         x = torch.sigmoid(self.conv1(x).float())
-        return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=False)
+        return bilinear(x, (scale * x.shape[2], scale * x.shape[3]), False, torch.float32)
 
 
 class NeWCRFsModel(GraphedForward):

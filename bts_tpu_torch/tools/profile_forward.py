@@ -44,6 +44,7 @@ KINDS = (
     ("cat", ("catarray", "cat_")),
     ("bn", ("batch_norm", "batchnorm", "bn_")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90_")),
+    ("resize", ("bilinear", "upsample")),  # ahead of "layout": upsample_bilinear2d_nhwc
     ("layout", ("nchw", "nhwc", "transpose", "permute", "copy")),
     ("norm", ("layer_norm", "group_norm")),  # ahead of PyTorch's "vectorized_layer_norm"
     ("elementwise", ("elementwise", "vectorized", "unrolled")),

@@ -297,8 +297,21 @@ Phases, in order; any failure raises and the script exits nonzero:
     dav2_vitl --dataset kitti --max_depth 80`` over 8 KITTI frames after
     ``kb_crop``; the cell's check (``benchmark/``) of the program and of each
     planted fault of ``tests/test_torch_depth_anything.py`` at the cell's
-    size, against its limits.
-Each phase's seconds are printed as it ends, and as JSON after phase 17.
+    size, against its limits; 6 launches of the bilinear resize kernel a
+    forward (``ops/resize.py``) eager, replayed and in ``cli.test``, and no
+    ``upsample_bilinear2d`` kernel in either profile (phase 16 holds
+    ``large07`` to 5 and none the same way).
+18. The bilinear resize (``ops/resize.py``, Triton): the kernel against its
+    plain version at every resize of a batch-8 forward of ``dav2_vitl`` at
+    KITTI (the DPT head's five, channels-last, bf16 in and out and f32 in
+    and out; the depth's, f32) and of ``large07`` at NYU (the PSP's four
+    and DispHead's, f32), bf16 within one bf16 ulp of the output's largest
+    magnitude and f32 within ``RESIZE_F32_TOL``, the output in the input's
+    memory format; its device ms beside its byte bound (input read and
+    output written once) and autocast's chain (the plain version: cast
+    in, f32 ``F.interpolate``, cast out), the head's five and the PSP's
+    four summed; other program sizes (``RESIZE_PROGRAMS``).
+Each phase's seconds are printed as it ends, and as JSON after phase 18.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps (a replayed forward's from
@@ -2354,6 +2367,14 @@ def largest_gap(torch, got, want):
                for g, w in zip(got, want, strict=True))
 
 
+def kernel_launches(run, *names):
+    """The launches a forward of a ``tools/profile_forward.py`` run of the
+    kernels of each name (PyTorch's ``vectorized_layer_norm_kernel`` is
+    not ``layer_norm_kernel``)."""
+    return tuple(sum(n for k, n in run["launches"].items() if name in k and "vectorized" not in k)
+                 for name in names)
+
+
 def call_ms(torch, fn, calls=GRAPH_TIMED_CALLS):
     """Medians of a call's host ms (until it returns) and wall ms (until the
     card is done), the card idle before each call."""
@@ -2527,6 +2548,7 @@ NEWCRFS_NORMS = [("patch_embed", 153600, 192, "bfloat16", "float32", 1),
                  ("crf1", 38400, 256, "bfloat16", "bfloat16", 5),
                  ("crf0", 153600, 128, "bfloat16", "bfloat16", 5)]
 NEWCRFS_NORM_LAUNCHES = 76
+NEWCRFS_RESIZE_LAUNCHES = 5  # the PSP's four and DispHead's (``ops/resize``)
 LAYER_NORM_SOURCE = "bts_tpu_torch/ops/layer_norm.py (Triton)"
 # The kernel against its plain version: f32 sums in another order (a
 # two-pass variance against PyTorch's Welford); bf16 outputs may then round
@@ -2655,6 +2677,7 @@ def phase16(torch, Config, create_model, smi):
     from bts_tpu_torch.cli import test as cli_test
     from bts_tpu_torch.models.encoders.swin import relative_position_index, shift_mask
     from bts_tpu_torch.ops import layer_norm as ln
+    from bts_tpu_torch.ops import resize as rs
     from bts_tpu_torch.ops import window_attention as wa
     from bts_tpu_torch.tools import profile_forward
 
@@ -2714,9 +2737,9 @@ def phase16(torch, Config, create_model, smi):
     torch.cuda.empty_cache()
 
     def launches():
-        return wa.LAUNCHES, ln.LAUNCHES
+        return wa.LAUNCHES, ln.LAUNCHES, rs.LAUNCHES
 
-    want_launches = (NEWCRFS_LAUNCHES, NEWCRFS_NORM_LAUNCHES)
+    want_launches = (NEWCRFS_LAUNCHES, NEWCRFS_NORM_LAUNCHES, NEWCRFS_RESIZE_LAUNCHES)
 
     # (b)-(d) the published model, seeded, NYU 480x640 at batch 8.
     cfg = Config(encoder="large07", dataset="nyu", max_depth=10.0, seed=16)
@@ -2748,7 +2771,7 @@ def phase16(torch, Config, create_model, smi):
             eager_ms = call_ms(torch, lambda: model._forward(x2, focal), calls=5)
             replay_ms = call_ms(torch, lambda: model(x2, focal), calls=10)
         if (eager_launches, replay_launches) != (want_launches, want_launches):
-            raise RuntimeError(f"large07: (window-attention, LayerNorm) launches "
+            raise RuntimeError(f"large07: (window-attention, LayerNorm, resize) launches "
                                f"{eager_launches} eager, {replay_launches} a replay, expected "
                                f"{want_launches}")
         if not torch.equal(replay, eager):
@@ -2781,33 +2804,32 @@ def phase16(torch, Config, create_model, smi):
                                "weights' eager forward")
     print(f"large07 ({params} parameters) NYU 480x640 b8 bf16 against the f32 reference: "
           f"depth absrel {absrel!r}, max {max_m!r} m; replay bit-equal to eager, "
-          f"{replay_launches} (window-attention, LayerNorm) launches a replay; ms a batch eager "
-          f"{eager_ms[1]!r}, replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.1f} img/s); "
+          f"{replay_launches} (window-attention, LayerNorm, resize) launches a replay; ms a "
+          f"batch eager {eager_ms[1]!r}, replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.1f} img/s); "
           f"peak {peak} bytes ({smi})", flush=True)
     del model, x, x2, eager, replay, new, new_eager
     torch.cuda.empty_cache()
 
     # (c) The eager and the replayed forward profiled: the window attention
-    # in 32 launches and the LayerNorms in 76 a forward, no roll kernel and
-    # no PyTorch LayerNorm.
+    # in 32 launches, the LayerNorms in 76 and the resizes in 5 a forward,
+    # no roll kernel, no PyTorch LayerNorm and no PyTorch resize.
     runs = profile_forward.main(["--encoder", "large07", "--batches", "8"])
     for run in runs:
-        attn = sum(n for k, n in run["launches"].items() if "window_attn_kernel" in k)
-        norms = sum(n for k, n in run["launches"].items()
-                    if "layer_norm_kernel" in k and "vectorized" not in k)
-        stray = {k: n for k, n in run["launches"].items()
-                 if "roll_cuda" in k or "vectorized_layer_norm" in k}
-        if (attn, norms) != want_launches or stray:
-            raise RuntimeError(f"large07 {run['forward']} forward: {attn} window-attention "
-                               f"and {norms} LayerNorm launches, stray kernels {stray}")
+        got = kernel_launches(run, "window_attn_kernel", "layer_norm_kernel",
+                              "bilinear_resize_kernel")
+        stray = {k: n for k, n in run["launches"].items() if any(
+            p in k for p in ("roll_cuda", "vectorized_layer_norm", "upsample_bilinear"))}
+        if got != want_launches or stray:
+            raise RuntimeError(f"large07 {run['forward']} forward: (window-attention, LayerNorm, "
+                               f"resize) launches {got}, stray kernels {stray}")
     profiles = {f"{r['forward']} {i}": {
         "device_ms": r["device_ms"], "kernels": r["kernels"], "by_kind_ms": r["by_kind_ms"],
         "copies": {k: n for k, n in r["launches"].items() if "copy" in k.lower()}}
         for i, r in enumerate(runs)}
-    print(f"large07 profiled b8 bf16: {NEWCRFS_LAUNCHES} window_attn_kernel and "
-          f"{NEWCRFS_NORM_LAUNCHES} layer_norm_kernel launches, no roll kernel and no "
-          f"vectorized_layer_norm_kernel a forward, eager and replayed; {json.dumps(profiles)} "
-          f"({smi})", flush=True)
+    print(f"large07 profiled b8 bf16: {want_launches} window_attn_kernel, layer_norm_kernel "
+          f"and bilinear_resize_kernel launches, no roll kernel, no vectorized_layer_norm_kernel "
+          f"and no upsample_bilinear2d kernel a forward, eager and replayed; "
+          f"{json.dumps(profiles)} ({smi})", flush=True)
     torch.cuda.empty_cache()
 
     # (e) cli.test --encoder large07.
@@ -2834,10 +2856,10 @@ def phase16(torch, Config, create_model, smi):
             os.chdir(cwd)
         check_pngs(os.path.join(tmp, "result_newcrfs", "raw"), 8, (480, 640), np.uint16)
     if launched != want_launches:
-        raise RuntimeError(f"cli.test --encoder large07: (window-attention, LayerNorm) "
+        raise RuntimeError(f"cli.test --encoder large07: (window-attention, LayerNorm, resize) "
                            f"launches {launched}, expected {want_launches} (one forward)")
     print(f"cli.test --encoder large07: 8 uint16 pngs, {launched} (window-attention, "
-          f"LayerNorm) launches")
+          f"LayerNorm, resize) launches")
     record = {"name": "window_attention", "route": "triton", "source": WINDOW_ATTN_SOURCE,
               "replaces": None, "launches_per_forward": NEWCRFS_LAUNCHES, "calls": calls,
               "model": {"parameters": params, "depth_absrel": absrel, "depth_max_m": max_m,
@@ -2851,7 +2873,7 @@ def phase16(torch, Config, create_model, smi):
 
 
 DAV2_SHAPE = (8, 16, 4737, 64)  # the KITTI cell's call: (B, heads, N, d)
-DAV2_LAUNCHES = (24, 52)  # global attention, LayerNorm: a dav2_vitl forward
+DAV2_LAUNCHES = (24, 52, 6)  # global attention, LayerNorm, resize: a dav2_vitl forward
 GLOBAL_ATTN_SOURCE = "bts_tpu_torch/ops/global_attention.py (Triton)"
 GLOBAL_ATTN_PEAK = {"bfloat16": 989e12, "float32": 67e12}  # f32: FMAs, no tensor cores
 # Tile settings (BLOCK_M, BLOCK_N, warps, stages) timed beside the kernel's own.
@@ -2926,8 +2948,8 @@ def dav2_cell_checks(torch):
     import test_torch_depth_anything as faults
     from benchmark import spec
     from benchmark.drivers import serve_closed
-    from bts_tpu_torch.models import depth_anything
     from bts_tpu_torch.models.encoders import vit
+    from bts_tpu_torch.ops import resize
 
     cell = spec.cell(spec.benchmark(), "kitti-dav2l-serve-b8")
     config, traffic = spec.config(cell["config"]), spec.traffic(cell["traffic"])
@@ -2943,7 +2965,8 @@ def dav2_cell_checks(torch):
                                    faults.fake_cls_not_a_key(vit.global_attention))],
         "taps off by one": [(vit.DinoVisionTransformer, "forward",
                              faults.taps_before_their_block)],
-        "head resize corners off": [(depth_anything, "F", faults.CornersOff())],
+        "head resize corners off": [(resize, "bilinear_triton",
+                                     faults.corners_off(resize.bilinear_triton))],
     }
     out = {}
     for i, (name, sets) in enumerate(patches.items()):
@@ -2975,6 +2998,7 @@ def phase17(torch, Config, create_model, smi):
     from bts_tpu_torch.cli import test as cli_test
     from bts_tpu_torch.ops import global_attention as ga
     from bts_tpu_torch.ops import layer_norm as ln
+    from bts_tpu_torch.ops import resize as rs
     from bts_tpu_torch.tools import profile_forward
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -3034,7 +3058,7 @@ def phase17(torch, Config, create_model, smi):
         torch.cuda.empty_cache()
 
     def launches():
-        return ga.LAUNCHES, ln.LAUNCHES
+        return ga.LAUNCHES, ln.LAUNCHES, rs.LAUNCHES
 
     # (b)-(c) the published model, seeded, KITTI 352x1216 at batch 8.
     cfg = Config(encoder="dav2_vitl", dataset="kitti", max_depth=80.0, seed=17)
@@ -3060,7 +3084,7 @@ def phase17(torch, Config, create_model, smi):
             eager_ms = call_ms(torch, lambda: model._forward(x2, focal), calls=5)
             replay_ms = call_ms(torch, lambda: model(x2, focal), calls=10)
         if (eager_launches, replay_launches) != (DAV2_LAUNCHES, DAV2_LAUNCHES):
-            raise RuntimeError(f"dav2_vitl: (global-attention, LayerNorm) launches "
+            raise RuntimeError(f"dav2_vitl: (global-attention, LayerNorm, resize) launches "
                                f"{eager_launches} eager, {replay_launches} a replay, expected "
                                f"{DAV2_LAUNCHES}")
         if not torch.equal(replay, eager):
@@ -3089,20 +3113,20 @@ def phase17(torch, Config, create_model, smi):
         del want, full
     print(f"dav2_vitl ({params} parameters) KITTI 352x1216 b8 against the f32 reference: "
           f"(depth absrel, max m) {gaps}; replay bit-equal to eager, "
-          f"{replay_launches} (global-attention, LayerNorm) launches a replay; ms a batch eager "
-          f"{eager_ms[1]!r}, replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.1f} img/s); peak "
-          f"{peak} bytes ({smi})", flush=True)
+          f"{replay_launches} (global-attention, LayerNorm, resize) launches a replay; ms a "
+          f"batch eager {eager_ms[1]!r}, replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.1f} "
+          f"img/s); peak {peak} bytes ({smi})", flush=True)
 
     # (c) the eager and the replayed forward profiled at the cell's size.
     profiles = {}
     for i, eager_run in enumerate((True, False, False, True)):
         run = profile_forward.profile_run(model, x, focal, None, eager=eager_run)
-        attn = sum(c for k_, c in run["launches"].items() if "global_attn_kernel" in k_)
-        norms = sum(c for k_, c in run["launches"].items()
-                    if "layer_norm_kernel" in k_ and "vectorized" not in k_)
-        if (attn, norms) != DAV2_LAUNCHES:
-            raise RuntimeError(f"dav2_vitl {run['forward']} forward: {attn} global-attention "
-                               f"and {norms} LayerNorm launches")
+        got = kernel_launches(run, "global_attn_kernel", "layer_norm_kernel",
+                              "bilinear_resize_kernel")
+        stray = {k_: c for k_, c in run["launches"].items() if "upsample_bilinear" in k_}
+        if got != DAV2_LAUNCHES or stray:
+            raise RuntimeError(f"dav2_vitl {run['forward']} forward: (global-attention, "
+                               f"LayerNorm, resize) launches {got}, stray kernels {stray}")
         if eager_run and not {"dav2/encoder", "dav2/head"} <= set(run.get("spans_ms", {})):
             raise RuntimeError(f"dav2_vitl eager profile without its spans: {run.get('spans_ms')}")
         profiles[f"{run['forward']} {i}"] = {k_: run[k_] for k_ in (
@@ -3140,10 +3164,10 @@ def phase17(torch, Config, create_model, smi):
             os.chdir(cwd)
         check_pngs(os.path.join(tmp, "result_dav2", "raw"), 8, (352, 1216), np.uint16)
     if launched != DAV2_LAUNCHES:
-        raise RuntimeError(f"cli.test --encoder dav2_vitl: (global-attention, LayerNorm) "
+        raise RuntimeError(f"cli.test --encoder dav2_vitl: (global-attention, LayerNorm, resize) "
                            f"launches {launched}, expected {DAV2_LAUNCHES} (one forward)")
     print(f"cli.test --encoder dav2_vitl --dataset kitti: 8 uint16 pngs of 352x1216, "
-          f"{launched} (global-attention, LayerNorm) launches", flush=True)
+          f"{launched} (global-attention, LayerNorm, resize) launches", flush=True)
 
     # (e) the cell's check of the program and of each planted fault.
     checks = dav2_cell_checks(torch)
@@ -3155,6 +3179,101 @@ def phase17(torch, Config, create_model, smi):
                         "profiles": profiles},
               "cell_checks": checks, "device": smi}
     print(json.dumps({"global_attention": record}))
+    return record
+
+
+# The bilinear resizes of the served forwards at batch 8 (``ops/resize``):
+# (label, C, H, W, Ho, Wo, align_corners, channels-last, in dtype, out
+# dtype). Depth Anything at KITTI: the DPT head's four fusion levels and
+# output_conv1's map, channels-last bf16 to bf16 under autocast (float32 in
+# and out in the f32 forward), the depth back to 352x1216 in float32;
+# NeWCRFs at NYU: the PSP's pooled maps to 15x20 and DispHead's x4, float32.
+RESIZE_HEAD = [("refinenet4", 256, 19, 64, 37, 128), ("refinenet3", 256, 37, 128, 74, 256),
+               ("refinenet2", 256, 74, 256, 148, 512), ("refinenet1", 256, 148, 512, 296, 1024),
+               ("output_conv1", 128, 296, 1024, 518, 1792)]
+RESIZE_CALLS = (
+    [(label, *shape, True, True, "bfloat16", "bfloat16") for label, *shape in RESIZE_HEAD]
+    + [(label + " f32", *shape, True, True, "float32", "float32")
+       for label, *shape in RESIZE_HEAD]
+    + [("dav2 depth", 1, 518, 1792, 352, 1216, True, False, "float32", "float32")]
+    + [(f"psp pool {s}", 512, s, s, 15, 20, False, False, "float32", "float32")
+       for s in (1, 2, 3, 6)]
+    + [("disp x4", 1, 120, 160, 480, 640, False, False, "float32", "float32")])
+RESIZE_LAUNCHES = {"dav2_vitl": DAV2_LAUNCHES[2], "large07": NEWCRFS_RESIZE_LAUNCHES}
+RESIZE_SOURCE = "bts_tpu_torch/ops/resize.py (Triton)"
+# The kernel against its plain version (``F.interpolate`` in float32, then the
+# cast) on randn maps: the same float32 lerp, its products perhaps fused
+# otherwise, so a bf16 output may round one ulp of the largest magnitude
+# apart, a float32 one a few float32 ulps.
+RESIZE_F32_TOL = 2e-6
+# (elements, warps) a program, timed beside ``resize.PROGRAM``.
+RESIZE_PROGRAMS = [(4096, 4), (1024, 4), (2048, 2), (4096, 8), (8192, 8)]
+
+
+def phase18(torch, smi):
+    """Phase 18, the bilinear resize (``ops/resize.py``): the steps of the
+    docstring's item 18. Returns the kernel's record."""
+    from bts_tpu_torch.ops import resize as rs
+
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    calls, inputs = {}, {}
+    for label, c, h, w, ho, wo, corners, cl, i_name, o_name in RESIZE_CALLS:
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        x = torch.randn(8, c, h, w, device="cuda", generator=gen).to(
+            dtypes[i_name]).contiguous(memory_format=fmt)
+        out = dtypes[o_name]
+        got = rs.bilinear_triton(x, (ho, wo), corners, out)
+        want = rs.bilinear_plain(x, (ho, wo), corners, out)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+               if out == torch.bfloat16 else RESIZE_F32_TOL)
+        if (got.shape != want.shape or got.dtype != out or not err <= tol
+                or not got.is_contiguous(memory_format=fmt)):
+            raise RuntimeError(f"resize {label}: max abs error {err} over {tol}, "
+                               f"{tuple(got.shape)} {got.dtype} strides {got.stride()}")
+        del got, want
+        ms = cuda_median_ms(lambda: rs.bilinear_triton(x, (ho, wo), corners, out), samples=20)
+        plain_ms = cuda_median_ms(lambda: rs.bilinear_plain(x, (ho, wo), corners, out),
+                                  samples=10, reps=3)
+        nbytes = x.numel() * x.element_size() + 8 * c * ho * wo * out.itemsize
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        calls[label] = {"shape": [8, c, h, w, ho, wo], "align_corners": corners,
+                        "channels_last": cl, "dtypes": [i_name, o_name], "max_abs_err": err,
+                        "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": "bytes", "roofline_pct": 100 * bound / ms}
+        print(f"resize {label} (8, {c}, {h}x{w} -> {ho}x{wo}, corners {corners}, "
+              f"{'channels-last' if cl else 'NCHW'}, {i_name}->{o_name}): max abs err {err!r} "
+              f"(tolerance {tol!r}); {ms!r} ms, bound {bound!r} ms ({100 * bound / ms:.1f}%), "
+              f"autocast's chain {plain_ms!r} ms ({smi})", flush=True)
+        inputs[label] = (x, (ho, wo), corners, out)
+    groups = {"head bf16": [label for label, *_ in RESIZE_HEAD],
+              "head f32": [f"{label} f32" for label, *_ in RESIZE_HEAD],
+              "psp": [f"psp pool {s}" for s in (1, 2, 3, 6)]}
+    sums = {}
+    for group, labels in groups.items():
+        sums[group] = {k: sum(calls[label][k] for label in labels)
+                       for k in ("ms", "plain_ms", "bound_ms")}
+        sums[group]["roofline_pct"] = 100 * sums[group]["bound_ms"] / sums[group]["ms"]
+        print(f"resize, {group}'s {len(labels)} calls at batch 8: kernel {sums[group]['ms']!r} "
+              f"ms, bound {sums[group]['bound_ms']!r} ms ({sums[group]['roofline_pct']:.1f}%), "
+              f"autocast's chain {sums[group]['plain_ms']!r} ms ({smi})", flush=True)
+    programs = {}
+    for program in RESIZE_PROGRAMS:
+        programs[str(program)] = {
+            group: sum(cuda_median_ms(lambda: rs.bilinear_triton(*inputs[label], program=program),
+                                      samples=20) for label in groups[group])
+            for group in ("head bf16", "psp")}
+        print(f"resize program {program} (elements, warps): {programs[str(program)]} ms "
+              f"(the kernel's {rs.PROGRAM}: head bf16 {sums['head bf16']['ms']!r}, psp "
+              f"{sums['psp']['ms']!r})", flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+    record = {"name": "bilinear_resize", "route": "triton", "source": RESIZE_SOURCE,
+              "replaces": None, "launches_per_forward": RESIZE_LAUNCHES, "calls": calls,
+              "sums": sums, "programs_ms": programs, "device": smi}
+    print(json.dumps({"bilinear_resize": record}))
     return record
 
 
@@ -3948,6 +4067,8 @@ def main():
     phase("17 Depth Anything V2: the global-attention kernel, dav2_vitl against its "
           "reference, cli.test, the cell's check and its planted faults")
     global_attn = phase17(torch, Config, create_model, smi)
+    phase("18 the bilinear resize kernel at the served forwards' calls")
+    phase18(torch, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 

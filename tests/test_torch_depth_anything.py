@@ -26,6 +26,7 @@ from bts_tpu_torch.evaluation.online import run_online_eval
 from bts_tpu_torch.models import create_model, depth_anything
 from bts_tpu_torch.models.convert import load_weights
 from bts_tpu_torch.models.encoders import vit
+from bts_tpu_torch.ops import resize
 from bts_tpu_torch.tools import bench
 from bts_tpu_torch.training.state import TrainState
 
@@ -172,19 +173,15 @@ def taps_before_their_block(self, x):
     return outs
 
 
-class CornersOff:
-    """``torch.nn.functional`` with every bilinear resize at
+def corners_off(real):
+    """An ``ops/resize`` resize with ``align_corners`` flipped: every
+    bilinear resize of the model (each at ``align_corners=True``) at
     ``align_corners=False``."""
 
-    def __getattr__(self, name):
-        return getattr(torch.nn.functional, name)
+    def resize(x, size, align_corners, out_dtype):
+        return real(x, size, not align_corners, out_dtype)
 
-    @staticmethod
-    def interpolate(x, *args, mode="nearest", align_corners=None, **kw):
-        if mode == "bilinear":
-            align_corners = False
-        return torch.nn.functional.interpolate(x, *args, mode=mode, align_corners=align_corners,
-                                               **kw)
+    return resize
 
 
 @pytest.mark.parametrize("fault", ["no attention scale", "pos-embed by size",
@@ -205,7 +202,7 @@ def test_planted_faults_depart_from_reference(weights, image, reference_depth, m
     elif fault == "taps off by one":
         monkeypatch.setattr(vit.DinoVisionTransformer, "forward", taps_before_their_block)
     else:
-        monkeypatch.setattr(depth_anything, "F", CornersOff())
+        monkeypatch.setattr(resize, "bilinear_plain", corners_off(resize.bilinear_plain))
     got = depth_of(models(weights)[1], image)
     assert (got - reference_depth).abs().max() > 10 * TOL["atol"]
 

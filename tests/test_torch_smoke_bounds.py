@@ -240,7 +240,8 @@ def test_phase16_norms_are_large07s():
 
 def test_phase17_launches_are_dav2s():
     """DAV2_LAUNCHES holds ``dav2_vitl``'s global attentions (one a block up
-    to the last tap) and LayerNorms (two a block and one a tap), and
+    to the last tap), LayerNorms (two a block and one a tap) and bilinear
+    resizes (one a fusion block, output_conv1's and the depth's), and
     DAV2_SHAPE its call at the KITTI cell's batch 8 and 352x1216."""
     import torch
 
@@ -251,6 +252,35 @@ def test_phase17_launches_are_dav2s():
         model = depth_anything.DepthAnythingV2Model(80.0, **depth_anything.VERSIONS["dav2_vitl"])
     blocks = max(model.pretrained.taps) + 1
     norms = sum(isinstance(m, layers.LayerNorm) for m in model.pretrained.blocks[:blocks].modules())
-    assert cs.DAV2_LAUNCHES == (blocks, norms + len(model.pretrained.taps)) == (24, 52)
+    fusions = sum(isinstance(m, depth_anything.FeatureFusionBlock) for m in model.modules())
+    assert cs.DAV2_LAUNCHES == (blocks, norms + len(model.pretrained.taps), fusions + 2) == (
+        24, 52, 6)
     mh, mw = depth_anything.model_input(352, 1216, model.input_size)
     assert cs.DAV2_SHAPE == (8, 16, (mh // vit.PATCH) * (mw // vit.PATCH) + 1, 64)
+
+
+def test_phase18_resizes_are_the_models():
+    """RESIZE_HEAD holds the DPT head's five resizes at the KITTI cell's
+    frame: each fusion level's map (the fourth tap's halved by a stride-2
+    convolution, the third's as it is, the second's and the first's
+    enlarged by their transposed convolutions' strides) to the next one's
+    size, the first x2, then output_conv1's half width to the model input;
+    the PSP calls are ``large07``'s pool scales to the 480x640 frame's
+    1/32 grid; the launches a forward match phases 16 and 17."""
+    from bts_tpu_torch.models import depth_anything, newcrfs
+    from bts_tpu_torch.models.encoders import vit
+
+    version = depth_anything.VERSIONS["dav2_vitl"]
+    mh, mw = depth_anything.model_input(352, 1216, version["input_size"])
+    h, w = mh // vit.PATCH, mw // vit.PATCH
+    grids = [(4 * h, 4 * w), (2 * h, 2 * w), (h, w), ((h + 1) // 2, (w + 1) // 2)]
+    head = [(grids[i + 1], grids[i]) for i in (2, 1, 0)] + [(grids[0], (8 * h, 8 * w)),
+                                                            ((8 * h, 8 * w), (mh, mw))]
+    features = version["features"]
+    assert [(c, (hi, wi), (ho, wo)) for _, c, hi, wi, ho, wo in cs.RESIZE_HEAD] == [
+        (c, *sizes) for c, sizes in zip([features] * 4 + [features // 2], head)]
+    psp = [call for call in cs.RESIZE_CALLS if call[0].startswith("psp")]
+    channels = newcrfs.VERSIONS["large07"]["psp_channels"]
+    assert [call[1:6] for call in psp] == [(channels, s, s, 480 // 32, 640 // 32)
+                                           for s in newcrfs.POOL_SCALES]
+    assert cs.RESIZE_LAUNCHES == {"dav2_vitl": 6, "large07": len(psp) + 1}
