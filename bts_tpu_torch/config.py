@@ -65,7 +65,7 @@ class Config:
     degree: float = 2.5
     do_kb_crop: bool = False
     use_right: bool = False
-    # 'imagenet' | 'caffe' | 'caffe_unscaled' | 'auto'
+    # 'imagenet' | 'caffe' | 'caffe_unscaled' | 'symmetric' | 'auto'
     normalization: str = "auto"
 
     # Multi-device
@@ -137,18 +137,20 @@ class Config:
 
     @property
     def resolved_normalization(self) -> str:
-        """'imagenet', 'caffe' or 'caffe_unscaled'. The TF reference scales
-        by 0.017 only for densenet encoders, so 'caffe' on another encoder
-        resolves to 'caffe_unscaled'. 'auto' is caffe where the weights were
-        trained on the TF pipeline's caffe statistics
-        (tensorflow/bts_dataloader.py:148-153): a TF --pretrained_model, or
-        the TF graph; else 'imagenet'."""
-        if self.normalization in ("imagenet", "caffe_unscaled"):
+        """'imagenet', 'caffe', 'caffe_unscaled' or 'symmetric' (RGB in
+        [-1, 1], Marigold's). The TF reference scales by 0.017 only for
+        densenet encoders, so 'caffe' on another encoder resolves to
+        'caffe_unscaled'. 'auto' is caffe where the weights were trained on
+        the TF pipeline's caffe statistics (tensorflow/bts_dataloader.py:148-153):
+        a TF --pretrained_model, or the TF graph; else the statistics the
+        encoder's model class names (``NORMALIZATION``: 'symmetric' for
+        Marigold, 'imagenet' for the rest)."""
+        if self.normalization in ("imagenet", "caffe_unscaled", "symmetric"):
             return self.normalization
         if self.normalization not in ("caffe", "auto"):
             raise ValueError(
-                f"normalization must be 'imagenet', 'caffe', 'caffe_unscaled' or 'auto' "
-                f"(got {self.normalization!r})"
+                f"normalization must be 'imagenet', 'caffe', 'caffe_unscaled', 'symmetric' or "
+                f"'auto' (got {self.normalization!r})"
             )
         caffe = "caffe" if self.encoder.startswith("densenet") else "caffe_unscaled"
         if self.normalization == "caffe":
@@ -160,7 +162,9 @@ class Config:
                 return caffe
         if self.resolved_flavor == "tf":
             return caffe
-        return "imagenet"
+        from bts_tpu_torch.models import input_normalization
+
+        return input_normalization(self.encoder)
 
     @property
     def resolved_flavor(self) -> str:

@@ -11,7 +11,7 @@ normalization run on the card inside the train step, on NHWC tensors:
   * horizontal flip with p=0.5 (:202-207);
   * photometric with p=0.5: gamma U(0.9,1.1), brightness U(0.75,1.25) NYU /
     U(0.9,1.1) KITTI, per-channel color U(0.9,1.1), clip [0,1] (:216-235);
-  * normalization: imagenet, caffe or caffe_unscaled.
+  * normalization: imagenet, caffe, caffe_unscaled or symmetric.
 
 The parameters are drawn on the host from an explicit ``torch.Generator``
 (a few scalars per sample), so the step is deterministic per generator seed;
@@ -126,6 +126,8 @@ def normalize(image: torch.Tensor, normalization: str) -> torch.Tensor:
         # x0.017 is densenet-only in the TF reference
         # (tensorflow/bts_dataloader.py:151-153).
         return image * 255.0 - torch.tensor(CAFFE_MEAN, **f32)
+    if normalization == "symmetric":
+        return image * 2.0 - 1.0
     return (image - torch.tensor(IMAGENET_MEAN, **f32)) / torch.tensor(IMAGENET_STD, **f32)
 
 

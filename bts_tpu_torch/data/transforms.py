@@ -104,9 +104,12 @@ def normalize_image(image: np.ndarray, style: str = "imagenet") -> np.ndarray:
     'caffe': TF convention (tensorflow/bts_dataloader.py:148-153).
     'caffe_unscaled': the TF convention for non-densenet encoders, mean
     subtraction only (tensorflow/bts_dataloader.py:151-153).
+    'symmetric': RGB in [-1, 1], Marigold's rgb / 255 * 2 - 1.
     """
     if style == "imagenet":
         return (image - IMAGENET_MEAN) / IMAGENET_STD
+    if style == "symmetric":
+        return image * 2.0 - 1.0
     if style == "caffe":
         return (image * 255.0 - CAFFE_MEAN) * CAFFE_SCALE
     if style == "caffe_unscaled":
@@ -117,6 +120,8 @@ def normalize_image(image: np.ndarray, style: str = "imagenet") -> np.ndarray:
 def denormalize_image(image: np.ndarray, style: str = "imagenet") -> np.ndarray:
     if style == "imagenet":
         return image * IMAGENET_STD + IMAGENET_MEAN
+    if style == "symmetric":
+        return (image + 1.0) / 2.0
     if style == "caffe":
         return (image / CAFFE_SCALE + CAFFE_MEAN) / 255.0
     if style == "caffe_unscaled":

@@ -6,17 +6,19 @@ and ``PAD_MULTIPLE``) and ``create_model(cfg)``, which builds that class on
 the CPU with weights seeded from ``cfg.seed``. ``FAMILIES`` lists them: BTS
 (the DenseNet, ResNet, ResNeXt and MobileNetV2 encoders with the
 Dense-ASPP/LPG decoder, ``models/bts.py``), NeWCRFs (``models/newcrfs.py``)
-and Depth Anything V2 (``models/depth_anything.py``). A name is looked up in
-its family's dict at each call, so an entry added to the dict later counts.
+Depth Anything V2 (``models/depth_anything.py``) and Marigold
+(``models/marigold.py``). A name is looked up in its family's dict at each
+call, so an entry added to the dict later counts.
 """
 
-from bts_tpu_torch.models import bts, depth_anything, newcrfs
+from bts_tpu_torch.models import bts, depth_anything, marigold, newcrfs
 
 # (dict of --encoder names, model class, builder) of each family
 FAMILIES = ((bts.ENCODERS, bts.BTSModel, bts.create_model),
             (newcrfs.VERSIONS, newcrfs.NeWCRFsModel, newcrfs.create_model),
             (depth_anything.VERSIONS, depth_anything.DepthAnythingV2Model,
-             depth_anything.create_model))
+             depth_anything.create_model),
+            (marigold.VERSIONS, marigold.MarigoldModel, marigold.create_model))
 
 
 def _family(name: str) -> tuple:
@@ -41,6 +43,16 @@ def create_model(cfg):
     """The model of ``cfg.encoder``, built by its family on the CPU, its
     weights seeded from ``cfg.seed``."""
     return _family(cfg.encoder)[2](cfg)
+
+
+def input_normalization(name: str) -> str:
+    """The input statistics the model of ``--encoder name`` reads
+    (``NORMALIZATION``), which ``--normalization auto`` resolves to;
+    'imagenet' for a name of no family."""
+    for names, cls, _ in FAMILIES:
+        if name in names:
+            return cls.NORMALIZATION
+    return "imagenet"
 
 
 def check_trainable(model_type: type) -> None:

@@ -143,11 +143,16 @@ def module_state(module: nn.Module) -> Optional[tuple]:
 def _read_by_address(module: nn.Module) -> list:
     """What a graph of ``module``'s forward reads by address outside its
     pool: every parameter and buffer, and the modules' cached tensors (the
-    dense layers' folded weights)."""
+    dense layers' folded weights, Marigold's noise and time-embedding
+    inputs by shape)."""
     held = []
     for m in _modules(module):
         held += [*m._parameters.values(), *m._buffers.values()]
-        held += [v for v in vars(m).values() if isinstance(v, (torch.Tensor, tuple))]
+        for v in vars(m).values():
+            if isinstance(v, (torch.Tensor, tuple)):
+                held.append(v)
+            elif isinstance(v, dict):
+                held += [c for c in v.values() if isinstance(c, (torch.Tensor, tuple))]
     return held
 
 
@@ -294,7 +299,11 @@ class GraphedForward(nn.Module):
       whose ``TRAINS`` is false (``models.check_trainable``);
     - ``PAD_MULTIPLE``: the multiple that ``apps/predict.forward_padded``
       edge-pads H and W up to before the forward (1: none, for a model that
-      resizes its frame itself)."""
+      resizes its frame itself);
+    - ``NORMALIZATION``: the input statistics its weights read, which
+      ``--normalization auto`` resolves to (``Config.resolved_normalization``)."""
+
+    NORMALIZATION = "imagenet"
 
     def __init__(self):
         super().__init__()

@@ -1,14 +1,17 @@
-"""Global multi-head self-attention over every token of an image, read
-straight from the QKV projection's output.
+"""Global multi-head attention over every token of an image, read
+straight from the projections' outputs.
 
-Q, K and V are (B, N, heads, d) views with any strides whose last
-dimension is contiguous: a ViT block's ``qkv`` output (B, N, 3, heads, d)
-goes in as it is, ``qkv[:, :, 0]``, ``qkv[:, :, 1]``, ``qkv[:, :, 2]``.
-A call computes, for every image and head h,
+Q is a (B, N_q, heads, d) view, K and V (B, N_k, heads, d) views, each
+with any strides whose last dimension is contiguous: a ViT block's ``qkv``
+output (B, N, 3, heads, d) goes in as it is, ``qkv[:, :, 0]``,
+``qkv[:, :, 1]``, ``qkv[:, :, 2]`` (self-attention, N_k = N_q); a
+denoiser's cross-attention reads K and V of one text context (1, N_k,
+heads, d) expanded over the batch (a batch stride of 0), against the N_q
+tokens of each image. A call computes, for every image and head h,
 
     O[:, h] = softmax(Q[:, h] K[:, h]^T * scale) V[:, h]
 
-over all N tokens (no mask, no bias) and writes O as (B, N, heads * d),
+over all N_k keys (no mask, no bias) and writes O as (B, N_q, heads * d),
 contiguous, ready for the output projection.
 
 - ``global_attention_plain``: the whole softmax of each head in plain
@@ -19,9 +22,12 @@ contiguous, ready for the output projection.
   at its first launch in a process (``triton`` is imported there, never at
   import). It replaces no TPU kernel: the JAX package has no attention; it
   is added for Depth Anything's DINOv2 ViT, whose 24 attentions over 4,737
-  tokens (KITTI) are the largest single part of its forward. Its work is
-  4 * N^2 * d operations a head against 8 * N * d bytes (bf16), about N/2
-  operations a byte, far above the card's 295: bound by the tensor cores.
+  tokens (KITTI) are the largest single part of its forward, and also
+  serves Marigold's U-Net (32 a call: self-attention over 6,912 to 108
+  latent tokens, cross-attention to 77 text tokens). A self-attention's
+  work is 4 * N^2 * d operations a head against 8 * N * d bytes (bf16),
+  about N/2 operations a byte, far above the card's 295: bound by the
+  tensor cores.
   So it never writes the N x N scores to memory: a program takes
   ``BLOCK_M`` query rows of one (image, head) and walks over the keys in
   tiles of ``BLOCK_N`` (a flash-attention forward): S = Q K^T on the tensor
@@ -29,11 +35,12 @@ contiguous, ready for the output projection.
   row maximum and sum, the scale and log2(e) folded into one multiply
   before ``exp2``), P rounded to the inputs' dtype, O += P V on the tensor
   cores in float32; the rows are divided by their sums once, at the end.
-  Keys past N in the last tile are masked to -inf (N = 4,737 = 74 * 64 + 1
-  leaves one token there), query rows past N are not stored. Float32
-  inputs take the IEEE path (``input_precision="ieee"``: FMAs, no tensor
-  cores), which ``cli.test``'s float32 default runs and no cell does; on an
-  H100 it is slower than the plain version's cuBLAS products.
+  Keys past N_k in the last tile are masked to -inf (N = 4,737 = 74 * 64
+  + 1 leaves one token there, 77 text keys 13), query rows past N_q are
+  not stored; the grid is (ceil(N_q / BLOCK_M), B * heads) whatever N_k.
+  Float32 inputs take the IEEE path (``input_precision="ieee"``: FMAs, no
+  tensor cores), which ``cli.test``'s float32 default runs and no cell
+  does; on an H100 it is slower than the plain version's cuBLAS products.
 - ``global_attention``: CPU tensors take the plain version; CUDA tensors
   launch the kernel or raise. The kernel has no backward: a CUDA call that
   autograd would record raises.
@@ -63,8 +70,8 @@ _KERNEL = None
 
 def global_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: float) -> torch.Tensor:
-    """The attention (module docstring) in plain PyTorch: q, k, v (B, N,
-    heads, d) -> (B, N, heads * d) in q's dtype."""
+    """The attention (module docstring) in plain PyTorch: q (B, N_q, heads,
+    d), k and v (B, N_k, heads, d) -> (B, N_q, heads * d) in q's dtype."""
     _check(q, k, v)
     b, n, heads, d = q.shape
     with torch.autocast(q.device.type, enabled=False):
@@ -83,11 +90,11 @@ def _kernel():
     import triton.language as tl
 
     @triton.jit
-    def attend(acc, l_i, m_i, q, k_ptrs, v_ptrs, keys, n_tokens, qk_scale,
+    def attend(acc, l_i, m_i, q, k_ptrs, v_ptrs, keys, n_keys, qk_scale,
                MASK: tl.constexpr, IEEE: tl.constexpr):
         """One tile of keys: the online softmax's step."""
         if MASK:
-            valid = keys < n_tokens
+            valid = keys < n_keys
             k = tl.load(k_ptrs, mask=valid[:, None], other=0.0)
         else:
             k = tl.load(k_ptrs)
@@ -111,10 +118,10 @@ def _kernel():
             acc = tl.dot(p.to(v.dtype), v, acc * alpha[:, None])
         return acc, l_i, m_new
 
-    @triton.jit(do_not_specialize=["n_tokens", "heads"])
+    @triton.jit(do_not_specialize=["n_queries", "n_keys", "heads"])
     def global_attn_kernel(q_ptr, k_ptr, v_ptr, o_ptr,
                            sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son,
-                           n_tokens, heads, qk_scale,
+                           n_queries, n_keys, heads, qk_scale,
                            D: tl.constexpr, BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr,
                            IEEE: tl.constexpr):
         bh = tl.program_id(1)
@@ -123,7 +130,7 @@ def _kernel():
         rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
         keys = tl.arange(0, BLOCK_N)
         cols = tl.arange(0, D)
-        in_rows = (rows < n_tokens)[:, None]
+        in_rows = (rows < n_queries)[:, None]
         q = tl.load(q_ptr + img * sqb + h * sqh + rows.to(tl.int64)[:, None] * sqn
                     + cols[None, :], mask=in_rows, other=0.0)
         k_ptrs = k_ptr + img * skb + h * skh + keys.to(tl.int64)[:, None] * skn + cols[None, :]
@@ -131,13 +138,13 @@ def _kernel():
         m_i = tl.full((BLOCK_M,), float("-inf"), tl.float32)
         l_i = tl.zeros((BLOCK_M,), tl.float32)
         acc = tl.zeros((BLOCK_M, D), tl.float32)
-        full = n_tokens // BLOCK_N * BLOCK_N
+        full = n_keys // BLOCK_N * BLOCK_N
         for start in range(0, full, BLOCK_N):
             acc, l_i, m_i = attend(acc, l_i, m_i, q, k_ptrs + start * skn, v_ptrs + start * svn,
-                                   keys + start, n_tokens, qk_scale, False, IEEE)
-        if full < n_tokens:
+                                   keys + start, n_keys, qk_scale, False, IEEE)
+        if full < n_keys:
             acc, l_i, m_i = attend(acc, l_i, m_i, q, k_ptrs + full * skn, v_ptrs + full * svn,
-                                   keys + full, n_tokens, qk_scale, True, IEEE)
+                                   keys + full, n_keys, qk_scale, True, IEEE)
         acc = acc / l_i[:, None]
         tl.store(o_ptr + img * sob + rows.to(tl.int64)[:, None] * son + h * D + cols[None, :],
                  acc.to(o_ptr.dtype.element_ty), mask=in_rows)
@@ -147,13 +154,15 @@ def _kernel():
 
 
 def _check(q, k, v) -> None:
-    if q.dim() != 4:
-        raise ValueError(f"global_attention takes q, k, v (B, N, heads, d) "
-                         f"(got q {tuple(q.shape)})")
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"global_attention takes q (B, N, heads, d), k and v (B, N_k, "
+                         f"heads, d) (got q {tuple(q.shape)}, k {tuple(k.shape)})")
+    for name, t, want in (("k", k, (q.shape[0], k.shape[1], *q.shape[2:])),
+                          ("v", v, k.shape)):
+        if t.shape != want or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"global_attention: {name} is {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}, q {tuple(q.shape)} {q.dtype} on {q.device}")
+                             f"{t.device}, q {tuple(q.shape)} {q.dtype} on {q.device}, "
+                             f"k {tuple(k.shape)}")
     if q.dtype not in DTYPES:
         raise TypeError(f"global_attention takes float32 or bfloat16 (got {q.dtype})")
     if q.shape[-1] != HEAD_DIM:
@@ -183,7 +192,7 @@ def global_attention_triton(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
         kernel[(-(-n // block_m), b * heads)](
             q, k, v, out, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
             k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
-            n, heads, float(scale) * math.log2(math.e),
+            n, k.shape[1], heads, float(scale) * math.log2(math.e),
             D=d, BLOCK_M=block_m, BLOCK_N=block_n, IEEE=q.dtype == torch.float32,
             num_warps=warps, num_stages=stages)
     LAUNCHES += 1
@@ -198,6 +207,6 @@ def global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return global_attention_plain(q, k, v, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("global_attention on a card has no backward: run the forward "
-                           "under torch.no_grad() or torch.inference_mode() (Depth Anything "
-                           "is served, not trained, by this port)")
+                           "under torch.no_grad() or torch.inference_mode() (the models that "
+                           "attend through it are served, not trained, by this port)")
     return global_attention_triton(q, k, v, scale)

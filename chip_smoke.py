@@ -311,7 +311,38 @@ Phases, in order; any failure raises and the script exits nonzero:
     output written once) and autocast's chain (the plain version: cast
     in, f32 ``F.interpolate``, cast out), the head's five and the PSP's
     four summed; other program sizes (``RESIZE_PROGRAMS``).
-Each phase's seconds are printed as it ends, and as JSON after phase 18.
+19. Marigold v1-0 (``--encoder marigold_v1_0``, ``models/marigold.py``): (a)
+    the global-attention kernel's cross-attention form against its plain
+    version at each of the U-Net's attention shapes at batch 8
+    (``MARIGOLD_ATTN``: self-attention over 6,912 to 108 latent tokens,
+    cross-attention of those queries to 77 text keys whose K and V are one
+    context expanded over the batch, a batch stride of 0), bf16 and f32 at
+    phase 17's tolerances, the bf16 device ms beside the bound, summed over
+    a U-Net call's 32; the LayerNorm kernel at the U-Net's four (rows, C)
+    (``MARIGOLD_NORMS``: C of 320, 640 and 1280, padded under the mask) and
+    the resize kernel at the frame's call (``MARIGOLD_RESIZE``: NCHW
+    float32 to bf16 and to float32, 480x640 to 576x768), each against its
+    plain version at phase 16(f)'s and phase 18's tolerances, timed beside
+    its byte bound; (b) the published model, seeded, biases and norms
+    drawn off their defaults and the empty-text embedding of std 1, at NYU
+    480x640 batch 8: the bf16 eager forward and its replay bit for bit, each
+    with (320, 480, 1) (global-attention, LayerNorm, resize) launches and 10
+    U-Net calls, eager and replay ms, peak memory, the bf16 and the f32
+    (TF32 off) forwards against the float32 reference
+    (``tests/marigold_reference.py``; ``MARIGOLD_GATES``); (c)
+    ``tools/profile_forward.py --encoder marigold_v1_0 --batches 8``: the
+    eager and the replayed forward in turns, each with those global-attention
+    and LayerNorm launches and no ``upsample_bilinear2d``, the eager ones
+    with the spans
+    ``marigold/encode``, ``marigold/unet`` and ``marigold/decode``; (d)
+    ``cli.test --encoder marigold_v1_0 --dataset nyu`` over 24 NYU frames
+    at batch 8 (an eager forward, a capture, a replay): 24 uint16 pngs and
+    three forwards' launches; (e) the cell's check (``benchmark/``) of the
+    program and of each of the seven planted faults of
+    ``tests/test_torch_marigold.py`` at the cell's size, against its
+    limits: five fail them, and the two the check is known not to see
+    (``MARIGOLD_CELL_MISSES``) pass.
+Each phase's seconds are printed as it ends, and as JSON after phase 19.
 
 The line before the last is the kernels' JSON record (``launches`` from the
 serving path of phase 5 for LPG and bf16 taps (a replayed forward's from
@@ -2587,20 +2618,20 @@ def window_attn_inputs(torch, b, h, w, c, heads, form, dtype, gen):
     return q, k, v, k_pad, v_pad
 
 
-def check_layer_norm(torch, ln, gen):
-    """Phase 16(f): the LayerNorm kernel against its plain version at each
-    (rows, C) of NEWCRFS_NORMS, for bf16 and f32 inputs and outputs, random
-    affine; its device ms beside its byte bound, the plain version's (the
-    chain autocast runs: cast in, f32 norm, cast out) and ``F.layer_norm``'s
-    on the input as it is (a bf16 input with its affine in bf16; in float32
-    where the output is), then the cast (``library_ms``; the port never
-    calls it). Returns the calls' records by "rows x C in->out" and the
-    forward's sums over its 76 calls."""
+def check_layer_norm(torch, ln, gen, norms=NEWCRFS_NORMS, model="large07"):
+    """Phase 16(f) (and 19(a) with MARIGOLD_NORMS): the LayerNorm kernel
+    against its plain version at each (rows, C) of ``norms``, for bf16 and
+    f32 inputs and outputs, random affine; its device ms beside its byte
+    bound, the plain version's (the chain autocast runs: cast in, f32 norm,
+    cast out) and ``F.layer_norm``'s on the input as it is (a bf16 input
+    with its affine in bf16; in float32 where the output is), then the cast
+    (``library_ms``; the port never calls it). Returns the calls' records by
+    "rows x C in->out" and the forward's sums over its calls."""
     import torch.nn.functional as F
 
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     calls = {}
-    for rows, c in dict.fromkeys((r, c) for _, r, c, *_ in NEWCRFS_NORMS):
+    for rows, c in dict.fromkeys((r, c) for _, r, c, *_ in norms):
         w = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
         b = 0.1 * torch.randn(c, device="cuda", generator=gen)
         base = 3 + 2 * torch.randn(rows, c, device="cuda", generator=gen)
@@ -2635,13 +2666,13 @@ def check_layer_norm(torch, ln, gen):
             del x, got, want, lib_x, lib_w, lib_b
         del base
     forward = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    for _, rows, c, i_name, o_name, n in NEWCRFS_NORMS:
+    for _, rows, c, i_name, o_name, n in norms:
         for k in forward:
             forward[k] += n * calls[f"{rows}x{c} {i_name}->{o_name}"][k]
     forward["roofline_pct"] = 100 * forward["bound_ms"] / forward["ms"]
     f32 = {k: sum(calls[f"{rows}x{c} float32->float32"][k] * n
-                  for _, rows, c, *_, n in NEWCRFS_NORMS) for k in ("ms", "library_ms")}
-    print(f"layer norm, a large07 b8 bf16 forward's {NEWCRFS_NORM_LAUNCHES} calls: kernel "
+                  for _, rows, c, *_, n in norms) for k in ("ms", "library_ms")}
+    print(f"layer norm, a {model} b8 bf16 forward's {sum(n for *_, n in norms)} calls: kernel "
           f"{forward['ms']!r} ms, bound {forward['bound_ms']!r} ms "
           f"({forward['roofline_pct']:.1f}%), plain (autocast's chain) {forward['plain_ms']!r} "
           f"ms, F.layer_norm {forward['library_ms']!r} ms; the same calls f32 in and out: "
@@ -3210,44 +3241,54 @@ RESIZE_F32_TOL = 2e-6
 RESIZE_PROGRAMS = [(4096, 4), (1024, 4), (2048, 2), (4096, 8), (8192, 8)]
 
 
+def check_resize(torch, rs, gen, call, smi):
+    """Phase 18 (and 19(a)): the kernel against its plain version at one of
+    RESIZE_CALLS on a randn map at batch 8, bf16 within one ulp of the
+    output's largest magnitude and f32 within RESIZE_F32_TOL, the output in
+    the input's memory format; its device ms beside its byte bound and
+    autocast's chain. Returns the call's record and its arguments."""
+    label, c, h, w, ho, wo, corners, cl, i_name, o_name = call
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    fmt = torch.channels_last if cl else torch.contiguous_format
+    x = torch.randn(8, c, h, w, device="cuda", generator=gen).to(
+        dtypes[i_name]).contiguous(memory_format=fmt)
+    out = dtypes[o_name]
+    got = rs.bilinear_triton(x, (ho, wo), corners, out)
+    want = rs.bilinear_plain(x, (ho, wo), corners, out)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+           if out == torch.bfloat16 else RESIZE_F32_TOL)
+    if (got.shape != want.shape or got.dtype != out or not err <= tol
+            or not got.is_contiguous(memory_format=fmt)):
+        raise RuntimeError(f"resize {label}: max abs error {err} over {tol}, "
+                           f"{tuple(got.shape)} {got.dtype} strides {got.stride()}")
+    del got, want
+    ms = cuda_median_ms(lambda: rs.bilinear_triton(x, (ho, wo), corners, out), samples=20)
+    plain_ms = cuda_median_ms(lambda: rs.bilinear_plain(x, (ho, wo), corners, out),
+                              samples=10, reps=3)
+    nbytes = x.numel() * x.element_size() + 8 * c * ho * wo * out.itemsize
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"shape": [8, c, h, w, ho, wo], "align_corners": corners, "channels_last": cl,
+           "dtypes": [i_name, o_name], "max_abs_err": err, "tolerance": tol, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+           "roofline_pct": 100 * bound / ms}
+    print(f"resize {label} (8, {c}, {h}x{w} -> {ho}x{wo}, corners {corners}, "
+          f"{'channels-last' if cl else 'NCHW'}, {i_name}->{o_name}): max abs err {err!r} "
+          f"(tolerance {tol!r}); {ms!r} ms, bound {bound!r} ms ({100 * bound / ms:.1f}%), "
+          f"autocast's chain {plain_ms!r} ms ({smi})", flush=True)
+    return rec, (x, (ho, wo), corners, out)
+
+
 def phase18(torch, smi):
     """Phase 18, the bilinear resize (``ops/resize.py``): the steps of the
     docstring's item 18. Returns the kernel's record."""
     from bts_tpu_torch.ops import resize as rs
 
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(18)
     calls, inputs = {}, {}
-    for label, c, h, w, ho, wo, corners, cl, i_name, o_name in RESIZE_CALLS:
-        fmt = torch.channels_last if cl else torch.contiguous_format
-        x = torch.randn(8, c, h, w, device="cuda", generator=gen).to(
-            dtypes[i_name]).contiguous(memory_format=fmt)
-        out = dtypes[o_name]
-        got = rs.bilinear_triton(x, (ho, wo), corners, out)
-        want = rs.bilinear_plain(x, (ho, wo), corners, out)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = (2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
-               if out == torch.bfloat16 else RESIZE_F32_TOL)
-        if (got.shape != want.shape or got.dtype != out or not err <= tol
-                or not got.is_contiguous(memory_format=fmt)):
-            raise RuntimeError(f"resize {label}: max abs error {err} over {tol}, "
-                               f"{tuple(got.shape)} {got.dtype} strides {got.stride()}")
-        del got, want
-        ms = cuda_median_ms(lambda: rs.bilinear_triton(x, (ho, wo), corners, out), samples=20)
-        plain_ms = cuda_median_ms(lambda: rs.bilinear_plain(x, (ho, wo), corners, out),
-                                  samples=10, reps=3)
-        nbytes = x.numel() * x.element_size() + 8 * c * ho * wo * out.itemsize
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        calls[label] = {"shape": [8, c, h, w, ho, wo], "align_corners": corners,
-                        "channels_last": cl, "dtypes": [i_name, o_name], "max_abs_err": err,
-                        "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": "bytes", "roofline_pct": 100 * bound / ms}
-        print(f"resize {label} (8, {c}, {h}x{w} -> {ho}x{wo}, corners {corners}, "
-              f"{'channels-last' if cl else 'NCHW'}, {i_name}->{o_name}): max abs err {err!r} "
-              f"(tolerance {tol!r}); {ms!r} ms, bound {bound!r} ms ({100 * bound / ms:.1f}%), "
-              f"autocast's chain {plain_ms!r} ms ({smi})", flush=True)
-        inputs[label] = (x, (ho, wo), corners, out)
+    for call in RESIZE_CALLS:
+        calls[call[0]], inputs[call[0]] = check_resize(torch, rs, gen, call, smi)
     groups = {"head bf16": [label for label, *_ in RESIZE_HEAD],
               "head f32": [f"{label} f32" for label, *_ in RESIZE_HEAD],
               "psp": [f"psp pool {s}" for s in (1, 2, 3, 6)]}
@@ -3274,6 +3315,333 @@ def phase18(torch, smi):
               "replaces": None, "launches_per_forward": RESIZE_LAUNCHES, "calls": calls,
               "sums": sums, "programs_ms": programs, "device": smi}
     print(json.dumps({"bilinear_resize": record}))
+    return record
+
+
+# Marigold v1-0 at NYU 480x640 (processed at 576x768), batch 8: a forward's
+# launches of (global attention, LayerNorm, resize), and its U-Net calls.
+MARIGOLD_LAUNCHES = (320, 480, 1)
+MARIGOLD_UNET_CALLS = 10
+# The U-Net's attentions at batch 8 a call, by level: (heads, N_q, N_k, K and
+# V's batch, launches a call); self-attention over the level's latent tokens
+# (72x96 halved per level), cross-attention to the 77 text tokens of one
+# context expanded over the batch; five Transformer blocks a level (two down,
+# three up) and the mid block's one.
+MARIGOLD_ATTN = [(heads, n, n_k, kv, blocks)
+                 for heads, n, blocks in ((5, 6912, 5), (10, 1728, 5), (20, 432, 5), (20, 108, 1))
+                 for n_k, kv in ((n, 8), (77, 1))]
+# The U-Net's LayerNorms at batch 8 under bf16 autocast, as NEWCRFS_NORMS:
+# three a Transformer block over the level's tokens, bf16 in (the stream
+# after ``proj_in``) and out (read by a Linear), C padded to 512, 1024 and
+# 2048 under the kernel's mask; calls a forward over its 10 U-Net calls.
+MARIGOLD_NORMS = [(f"unet level {level}", 8 * n, 64 * heads, "bfloat16", "bfloat16",
+                   3 * blocks * MARIGOLD_UNET_CALLS)
+                  for level, (heads, n, _, _, blocks) in enumerate(MARIGOLD_ATTN[::2])]
+# The frame's resize to the processing size (as RESIZE_CALLS): the
+# normalised float32 frame, NCHW, to the dtype ``conv_in`` reads (bf16 under
+# autocast, float32 in the f32 forward).
+MARIGOLD_RESIZE = [(f"marigold frame {o}", 3, 480, 640, 576, 768, False, False, "float32", o)
+                   for o in ("bfloat16", "float32")]
+# The published model, seeded and drawn off its defaults, at batch 8 against
+# the float32 reference: (depth absrel, max m) gates of the f32 forward (TF32
+# off) and of the bf16 forward.
+# The f32 forward computes the reference's equations in another order
+# (4.5e-6 AbsRel and 7.7e-5 m measured, the seed-19 weights); the bf16 forward
+# differs by bf16's rounding through 10 U-Net calls and the decoder (0.0168
+# AbsRel, 0.25 m measured; the cell's float8 control reads 0.46-1.29 AbsRel
+# and 3.6-4.8 m).
+MARIGOLD_GATES = {"float32": (1e-4, 0.01), "bfloat16": (0.05, 1.0)}
+# The planted faults of ``tests/test_torch_marigold.py`` that the cell's check
+# is known not to separate: ``benchmark/weights.py`` seeds the empty-text
+# embedding at std 0.02, where the cross-attention adds little, and the last
+# step's ``ab_prev`` moves the map less than the bf16 program's own spread
+# (0.245 and 0.454 m measured against the 0.9 m limit). Every other fault
+# has to fail a limit; these two have to pass, so that a change of what the
+# check sees shows here.
+MARIGOLD_CELL_MISSES = ("cross-attention skipped", "last ab_prev one")
+
+
+def marigold_attn_calls(torch, smi):
+    """19(a): the kernel against its plain version at each of the U-Net's
+    attention shapes, bf16 and f32, K and V of the cross-attentions one
+    context expanded over the batch; bf16 ms beside the bound, summed over a
+    U-Net call."""
+    from bts_tpu_torch.ops import global_attention as ga
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    calls, call_ms, call_bound = {}, 0.0, 0.0
+    for heads, n, n_k, kv, blocks in MARIGOLD_ATTN:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            q = torch.randn(8, n, heads, 64, device="cuda", generator=gen).to(dtype)
+            k, v = (torch.randn(kv, n_k, heads, 64, device="cuda", generator=gen).to(dtype)
+                    .expand(8, -1, -1, -1) for _ in range(2))
+            got = ga.global_attention_triton(q, k, v, 0.125)
+            want = torch.cat([ga.global_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], 0.125)
+                              for i in range(8)])
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = (2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+                   if dtype == torch.bfloat16 else 1e-5)
+            label = f"(8, {heads}, {n}, {n_k}, kv batch {kv}) {name}"
+            if got.shape != (8, n, heads * 64) or not err <= tol:
+                raise RuntimeError(f"global attention {label}: max abs error {err} over {tol}")
+            rec = {"max_abs_err": err, "tolerance": tol, "launches_a_call": blocks}
+            if dtype == torch.bfloat16:
+                ms = cuda_median_ms(lambda: ga.global_attention_triton(q, k, v, 0.125),
+                                    samples=10, reps=3)
+                ops = 4 * 8 * heads * n * n_k * 64
+                nbytes = 2 * heads * 64 * (2 * 8 * n + 2 * kv * n_k)
+                bound = max(ops / GLOBAL_ATTN_PEAK[name], nbytes / HBM_BYTES_PER_S) * 1e3
+                rec.update(ms=ms, bound_ms=bound, roofline_pct=100 * bound / ms)
+                call_ms += blocks * ms
+                call_bound += blocks * bound
+            calls[label] = rec
+            print(f"global attention {label}: max abs error {err!r} (tolerance {tol!r})"
+                  + (f"; {rec['ms']!r} ms, bound {rec['bound_ms']!r} ms "
+                     f"({rec['roofline_pct']:.1f}%)" if "ms" in rec else ""), flush=True)
+            del q, k, v, got, want
+    print(f"global attention, a U-Net call's 32 at batch 8 bf16: {call_ms!r} ms, bound "
+          f"{call_bound!r} ms ({100 * call_bound / call_ms:.1f}%) ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    return {"calls": calls, "unet_call_ms": call_ms, "unet_call_bound_ms": call_bound}
+
+
+def marigold_norms_and_resize(torch, smi):
+    """19(a): the LayerNorm kernel at the U-Net's (rows, C)
+    (MARIGOLD_NORMS) and the resize kernel at the frame's call
+    (MARIGOLD_RESIZE), each against its plain version at phase 16(f)'s and
+    phase 18's tolerances, with the forward's sums."""
+    from bts_tpu_torch.ops import layer_norm as ln
+    from bts_tpu_torch.ops import resize as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    norm_calls, norm_forward = check_layer_norm(torch, ln, gen, MARIGOLD_NORMS, "marigold_v1_0")
+    resize_calls = {call[0]: check_resize(torch, rs, gen, call, smi)[0]
+                    for call in MARIGOLD_RESIZE}
+    torch.cuda.empty_cache()
+    return {"layer_norm": {"calls": norm_calls, "forward": norm_forward},
+            "resize": resize_calls}
+
+
+def marigold_perturb(torch, model, seed):
+    """Every bias at 0.1 * randn, every norm's weight at 1 + 0.1 * randn, the
+    empty-text embedding of std 1 (a text encoder's output's scale): the
+    seeded defaults (0, 1 and 0.02) would hide them."""
+    dav2_perturb(torch, model, seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        model.empty_text_embed.copy_(torch.randn(model.empty_text_embed.shape, generator=gen))
+
+
+def marigold_model_checks(torch, Config, create_model, smi):
+    """19(b): the published model at NYU 480x640, batch 8: the bf16 eager
+    forward, its replay bit for bit, launches and U-Net calls of each, ms
+    and peak memory; the bf16 and the f32 (TF32 off) forwards against the
+    float32 reference."""
+    from bts_tpu_torch.models import marigold
+    from bts_tpu_torch.ops import global_attention as ga
+    from bts_tpu_torch.ops import layer_norm as ln
+    from bts_tpu_torch.ops import resize as rs
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import marigold_reference
+
+    def launches():
+        return ga.LAUNCHES, ln.LAUNCHES, rs.LAUNCHES, marigold.UNET_CALLS
+
+    want_launches = (*MARIGOLD_LAUNCHES, MARIGOLD_UNET_CALLS)
+    cfg = Config(encoder="marigold_v1_0", dataset="nyu", max_depth=10.0, min_depth=1e-3, seed=19)
+    model = create_model(cfg)
+    params = sum(p.numel() for p in model.parameters())
+    marigold_perturb(torch, model, 19)
+    model = model.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.rand(8, 3, 480, 640, device="cuda", generator=gen) * 2 - 1
+    x2 = torch.rand(8, 3, 480, 640, device="cuda", generator=gen) * 2 - 1
+    focal = torch.full((8,), 518.8579, device="cuda")
+    with torch_defaults(torch):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            before = launches()
+            eager, = model._forward(x, focal)
+            torch.cuda.synchronize()
+            eager_launches = tuple(a - b for a, b in zip(launches(), before))
+            model(x, focal), model(x, focal)  # eager, then the capture and its replay
+            before = launches()
+            replay, = model(x, focal)
+            torch.cuda.synchronize()
+            replay_launches = tuple(a - b for a, b in zip(launches(), before))
+            peak = torch.cuda.max_memory_allocated()
+            eager_ms = call_ms(torch, lambda: model._forward(x2, focal), calls=3)
+            replay_ms = call_ms(torch, lambda: model(x2, focal), calls=5)
+        if (eager_launches, replay_launches) != (want_launches, want_launches):
+            raise RuntimeError(f"marigold_v1_0: (global-attention, LayerNorm, resize, U-Net "
+                               f"calls) {eager_launches} eager, {replay_launches} a replay, "
+                               f"expected {want_launches}")
+        if not torch.equal(replay, eager):
+            raise RuntimeError(f"marigold_v1_0: the replay is {largest_gap(torch, [replay], [eager])}"
+                               " from the eager forward")
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                               "configs", "marigold-nyu-v1-0.json")) as f:
+            ref = marigold_reference.Marigold(json.load(f)).cuda().eval()
+        ref.load_state_dict(model.state_dict())
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            want = ref(x, focal)
+            del ref
+            with torch.inference_mode():
+                full, = model(x, focal)  # f32, through the kernels' f32 forms
+        torch.backends.cudnn.allow_tf32 = True
+        gaps = {}
+        for name, got in (("bfloat16", replay), ("float32", full)):
+            gap = (got - want).abs()
+            gaps[name] = ((gap / want).mean().item(), gap.max().item())
+        ends = {"near": (want <= 1e-3 + 1e-6).float().mean().item(),
+                "far": (want >= 10.0 - 1e-5).float().mean().item(),
+                "std_m": want.std().item()}
+        print(f"marigold_v1_0 ({params} parameters) NYU 480x640 b8 against the f32 reference: "
+              f"(depth absrel, max m) {gaps}, the reference's share at the range's ends and "
+              f"std {ends}; replay bit-equal to eager, {replay_launches} (global-attention, "
+              f"LayerNorm, resize, U-Net calls) a replay; ms a batch eager {eager_ms[1]!r}, "
+              f"replay {replay_ms[1]!r} ({8e3 / replay_ms[1]:.2f} img/s); peak {peak} bytes "
+              f"({smi})", flush=True)
+        for name in gaps:
+            if gaps[name][0] > MARIGOLD_GATES[name][0] or gaps[name][1] > MARIGOLD_GATES[name][1]:
+                raise RuntimeError(f"marigold_v1_0 {name} against the f32 reference: (absrel, "
+                                   f"max m) {gaps[name]}, gates {MARIGOLD_GATES[name]}")
+    del model, x, x2, eager, replay, want, full
+    torch.cuda.empty_cache()
+    return {"parameters": params, "depth_absrel": gaps["bfloat16"][0],
+            "depth_max_m": gaps["bfloat16"][1], "float32": gaps["float32"],
+            "reference_ends": ends, "eager_ms": eager_ms[1], "replay_ms": replay_ms[1],
+            "peak_bytes": peak}
+
+
+def marigold_profiles(torch, smi):
+    """19(c): ``tools/profile_forward.py --encoder marigold_v1_0`` at batch
+    8: the eager and the replayed forward in turns, each with the forward's
+    global-attention and LayerNorm launches, the eager ones with the spans
+    ``marigold/encode``, ``marigold/unet`` and ``marigold/decode``; no
+    ``upsample_bilinear2d`` (the depth's antialiased resize is another
+    kernel)."""
+    from bts_tpu_torch.tools import profile_forward
+
+    runs = profile_forward.main(["--encoder", "marigold_v1_0", "--batches", "8"])
+    out = {}
+    for i, run in enumerate(runs):
+        got = kernel_launches(run, "global_attn_kernel", "layer_norm_kernel",
+                              "bilinear_resize_kernel")
+        stray = {k: c for k, c in run["launches"].items() if "upsample_bilinear" in k}
+        spans = {k: v for k, v in run.get("spans_ms", {}).items() if k.startswith("marigold/")}
+        # The resize is a forward's first kernel, and the profiler can miss
+        # the first kernel of its window (2 of 3 forwards' resizes seen, in
+        # an eager run of one call and a replayed run of another): the
+        # resize is held to its count by 19(b)'s counters, not by the profile.
+        want = (*MARIGOLD_LAUNCHES[:2], got[2])
+        if got != want or stray or (
+                run["forward"] == "eager"
+                and set(spans) != {"marigold/encode", "marigold/unet", "marigold/decode"}):
+            raise RuntimeError(f"marigold_v1_0 {run['forward']} forward: (global-attention, "
+                               f"LayerNorm, resize) launches {got}, stray {stray}, spans {spans}")
+        out[f"{run['forward']} {i}"] = {**{k: run[k] for k in (
+            "device_ms", "wall_ms", "idle", "kernels", "by_kind_ms", "top_kernels_ms")},
+            "spans_ms": spans}
+    print(f"marigold_v1_0 profiled b8 480x640 bf16: {json.dumps(out)} ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def marigold_cli_test(torch):
+    """19(d): ``cli.test --encoder marigold_v1_0 --dataset nyu`` over 24
+    NYU frames at batch 8: an eager forward, a capture and a replay; 24
+    uint16 pngs of 480x640; three forwards' launches."""
+    from bts_tpu_torch.cli import test as cli_test
+    from bts_tpu_torch.models import graphed, marigold
+    from bts_tpu_torch.ops import global_attention as ga
+    from bts_tpu_torch.ops import layer_norm as ln
+    from bts_tpu_torch.ops import resize as rs
+
+    def launches():
+        return (ga.LAUNCHES, ln.LAUNCHES, rs.LAUNCHES, marigold.UNET_CALLS, graphed.REPLAYS)
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = write_nyu_frames(os.path.join(tmp, "data"), 24)
+        argv = ["--encoder", "marigold_v1_0", "--dataset", "nyu", "--max_depth", "10",
+                "--min_depth", "1e-3", "--input_height", "480", "--input_width", "640",
+                "--compute_dtype", "bfloat16", "--eval_batch_size", "8",
+                "--data_path", os.path.join(tmp, "data"), "--filenames_file", manifest,
+                "--model_name", "marigold"]
+        os.chdir(tmp)
+        try:
+            before = launches()
+            if cli_test.main(argv) != 0:
+                raise RuntimeError("cli.test --encoder marigold_v1_0 failed")
+            torch.cuda.synchronize()
+            launched = tuple(a - b for a, b in zip(launches(), before))
+        finally:
+            os.chdir(cwd)
+        check_pngs(os.path.join(tmp, "result_marigold", "raw"), 24, (480, 640), np.uint16)
+    want = (*(3 * n for n in MARIGOLD_LAUNCHES), 3 * MARIGOLD_UNET_CALLS, 2)
+    if launched != want:
+        raise RuntimeError(f"cli.test --encoder marigold_v1_0: (global-attention, LayerNorm, "
+                           f"resize, U-Net calls, replays) {launched}, expected {want}")
+    print(f"cli.test --encoder marigold_v1_0 --dataset nyu: 24 uint16 pngs of 480x640, "
+          f"{launched} (global-attention, LayerNorm, resize, U-Net calls, replays)", flush=True)
+    return launched
+
+
+def marigold_cell_checks(torch):
+    """19(e): the cell's check (``benchmark/drivers/serve_closed.py``: seeded
+    weights and frames, the dumper's calls for 2 s, the kept depth maps
+    against the float32 reference) of the program and of each planted fault
+    of ``tests/test_torch_marigold.py``'s ``FAULTS``, monkeypatched in:
+    {name: (depth_absrel, depth_max_m, within the cell's limits)}. The
+    program within them, every fault but MARIGOLD_CELL_MISSES out of them,
+    and those two within."""
+    import pytest
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_marigold
+    from benchmark import spec
+    from benchmark.drivers import serve_closed
+
+    cell = spec.cell(spec.benchmark(), "nyu-marigold-serve-b8")
+    config, traffic = spec.config(cell["config"]), spec.traffic(cell["traffic"])
+    limits = spec.limits(cell["name"])
+    out = {}
+    for i, name in enumerate(("sound", *test_torch_marigold.FAULTS)):
+        with pytest.MonkeyPatch.context() as mp:
+            if name != "sound":
+                mp.setattr(*test_torch_marigold.FAULTS[name])
+            serving = serve_closed.Driver(config, traffic, 2600019 + i, torch.device("cuda"))
+            serving.window(2.0)
+            serving.release()
+        numbers = serving.check()
+        held = all(numbers[k] <= v for k, v in limits.items())
+        out[name] = (numbers["depth_absrel"], numbers["depth_max_m"], held)
+        print(f"nyu-marigold-serve-b8 check, {name}: depth_absrel {numbers['depth_absrel']!r}, "
+              f"depth_max_m {numbers['depth_max_m']!r}, within {limits}: {held}", flush=True)
+        del serving
+        torch.cuda.empty_cache()
+    passed = {name for name, (*_, held) in out.items() if held and name != "sound"}
+    if not out["sound"][2] or passed != set(MARIGOLD_CELL_MISSES):
+        raise RuntimeError(f"nyu-marigold-serve-b8: the check passes {sorted(passed)}, known to "
+                           f"pass {list(MARIGOLD_CELL_MISSES)}, the program "
+                           f"{'within' if out['sound'][2] else 'out of'} its limits: {out}")
+    return out
+
+
+def phase19(torch, Config, create_model, smi):
+    """Phase 19, Marigold v1-0 (``models/marigold.py``): the steps of the
+    docstring's item 19. Returns the model's record."""
+    record = {"name": "marigold_v1_0", "attention": marigold_attn_calls(torch, smi),
+              "kernels": marigold_norms_and_resize(torch, smi),
+              "model": marigold_model_checks(torch, Config, create_model, smi),
+              "profiles": marigold_profiles(torch, smi), "cli_test": marigold_cli_test(torch),
+              "cell_checks": marigold_cell_checks(torch), "device": smi}
+    print(json.dumps({"marigold": record}))
     return record
 
 
@@ -4069,6 +4437,9 @@ def main():
     global_attn = phase17(torch, Config, create_model, smi)
     phase("18 the bilinear resize kernel at the served forwards' calls")
     phase18(torch, smi)
+    phase("19 Marigold v1-0: cross-attention in the global-attention kernel, marigold_v1_0 "
+          "against its reference, the replay, cli.test, the cell's check and planted faults")
+    phase19(torch, Config, create_model, smi)
     phase()
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
 

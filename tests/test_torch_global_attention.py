@@ -1,6 +1,8 @@
 """``ops/global_attention`` on the CPU: the plain version against a float64
 softmax at token counts around the kernel's tiles (1, 63, 64, 65, 127, 128,
-129), read from a ``qkv`` output as a ViT block hands it; bf16 inputs; the
+129), read from a ``qkv`` output as a ViT block hands it; cross-attention,
+N_k apart from N_q (77 text keys against 6,912 and 108 queries), K and V of
+one context expanded over the batch (a batch stride of 0); bf16 inputs; the
 wrapper's refusals; the launch counter in ``ops.LAUNCH_COUNTERS``."""
 
 import pytest
@@ -40,6 +42,24 @@ def test_plain_matches_float64_softmax(n):
     torch.testing.assert_close(low.double(), want, rtol=0.05, atol=0.05)
 
 
+@pytest.mark.parametrize("n_q,n_k", [(6912, 77), (108, 77), (65, 129)])
+def test_cross_attention_with_a_shared_context(n_q, n_k):
+    """q of each image against one context's K and V, expanded over the
+    batch (stride 0), as the denoiser's cross-attention reads them; the same
+    as the context copied for every image, and as a float64 softmax."""
+    gen = torch.Generator().manual_seed(n_q + n_k)
+    q = torch.randn(2, n_q, HEADS, D, generator=gen)
+    kv = torch.randn(1, n_k, 2, HEADS, D, generator=gen)
+    k, v = kv[:, :, 0].expand(2, -1, -1, -1), kv[:, :, 1].expand(2, -1, -1, -1)
+    assert k.stride(0) == 0 and k.stride(-1) == 1
+    got = ga.global_attention(q, k, v, D ** -0.5)
+    assert got.shape == (2, n_q, HEADS * D) and got.is_contiguous()
+    torch.testing.assert_close(got, ga.global_attention(q, k.contiguous(), v.contiguous(),
+                                                        D ** -0.5), rtol=0, atol=0)
+    torch.testing.assert_close(got.double(), softmax64(q, k, v, D ** -0.5), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_plain_rounds_p_to_the_inputs_dtype():
     """bf16 inputs: P is rounded to bf16 before P V, as the kernel rounds it."""
     q, k, v = (t.bfloat16() for t in qkv_views(65, seed=1))
@@ -58,6 +78,8 @@ def test_refusals():
         ga.global_attention(q[0], k[0], v[0], 0.125)
     with pytest.raises(ValueError, match="v is"):
         ga.global_attention(q, k, v[:, :4], 0.125)
+    with pytest.raises(ValueError, match="k is"):
+        ga.global_attention(q, k[:1].expand(1, -1, -1, -1), v, 0.125)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ga.global_attention(q.half(), k.half(), v.half(), 0.125)
     with pytest.raises(ValueError, match="head dimension"):

@@ -4,6 +4,7 @@ work (the ``bound_ms`` of its JSON line)."""
 
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -284,3 +285,65 @@ def test_phase18_resizes_are_the_models():
     assert [call[1:6] for call in psp] == [(channels, s, s, 480 // 32, 640 // 32)
                                            for s in newcrfs.POOL_SCALES]
     assert cs.RESIZE_LAUNCHES == {"dav2_vitl": 6, "large07": len(psp) + 1}
+
+
+def test_phase19_launches_are_marigolds():
+    """MARIGOLD_LAUNCHES holds ``marigold_v1_0``'s global attentions (two a
+    Transformer block), LayerNorms (three a block) a U-Net call times its 10
+    calls, and the frame's one resize; MARIGOLD_ATTN the U-Net's attention
+    calls at NYU 480x640 (processed at 576x768, a 72x96 latent) and batch 8,
+    by level, their launches a call summing to the blocks' self- and
+    cross-attentions; MARIGOLD_NORMS the U-Net's LayerNorms by (rows, C) at
+    batch 8, each writing the dtype its Linear reads, three a Transformer
+    block at its level's tokens over the 10 calls; MARIGOLD_RESIZE the
+    frame's float32 NCHW map to the processing size, without corners; the
+    cell's known misses planted faults of ``tests/test_torch_marigold.py``."""
+    import collections
+
+    import torch
+
+    from bts_tpu_torch.models import layers, marigold
+
+    with torch.device("meta"):
+        model = marigold.MarigoldModel(**marigold.VERSIONS["marigold_v1_0"])
+    steps = model.steps
+    blocks = [m for m in model.unet.modules() if isinstance(m, marigold.TransformerBlock)]
+    norms = sum(isinstance(m, layers.LayerNorm) for m in model.unet.modules())
+    assert cs.MARIGOLD_UNET_CALLS == steps == 10
+    assert cs.MARIGOLD_LAUNCHES == (2 * len(blocks) * steps, norms * steps, 1) == (320, 480, 1)
+    ph, pw = marigold.processing_size(480, 640, model.processing_res)
+    lh, lw = ph // 8, pw // 8
+    assert (lh, lw) == (72, 96)
+    by_width = {}
+    for m in model.unet.modules():
+        if isinstance(m, marigold.Transformer2D):
+            by_width[m.proj_in.in_features] = by_width.get(m.proj_in.in_features, 0) + 1
+    want = []
+    for level, (c, n) in enumerate(((320, 5), (640, 5), (1280, 5), (1280, 1))):
+        tokens = (lh >> level) * (lw >> level)
+        want += [(c // 64, tokens, tokens, 8, n), (c // 64, tokens, 77, 1, n)]
+    assert cs.MARIGOLD_ATTN == want
+    assert by_width == {320: 5, 640: 5, 1280: 6}
+    assert sum(n for *_, n in cs.MARIGOLD_ATTN) == 2 * len(blocks) == 32
+
+    unet, last = model.unet, len(model.unet.down_blocks) - 1
+    placed = ([(level, b.attentions) for level, b in enumerate(unet.down_blocks)]
+              + [(last - i, b.attentions) for i, b in enumerate(unet.up_blocks)]
+              + [(last, unet.mid_block.attentions)])
+    norms_at = collections.Counter()
+    for level, attentions in placed:
+        for m in attentions.modules() if attentions is not None else ():
+            if isinstance(m, layers.LayerNorm):
+                assert m.to_gemm
+                norms_at[8 * (lh >> level) * (lw >> level), m.normalized_shape[0]] += steps
+    assert collections.Counter({(rows, c): n for _, rows, c, i, o, n in cs.MARIGOLD_NORMS
+                                if (i, o) == ("bfloat16", "bfloat16")}) == norms_at
+    assert len(cs.MARIGOLD_NORMS) == 4 and sum(norms_at.values()) == 480
+    assert [call[1:] for call in cs.MARIGOLD_RESIZE] == [
+        (3, 480, 640, ph, pw, False, False, "float32", out) for out in ("bfloat16", "float32")]
+    assert len(cs.MARIGOLD_RESIZE) // 2 == cs.MARIGOLD_LAUNCHES[2]
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_marigold
+
+    assert set(cs.MARIGOLD_CELL_MISSES) < set(test_torch_marigold.FAULTS)
